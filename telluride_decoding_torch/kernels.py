@@ -1,0 +1,112 @@
+"""Builds and loads the port's hand-written CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface. At first use they
+are compiled with ``nvcc`` for ``sm_90a`` into one shared library under
+``build/telluride_kernels/`` at the root of the checkout, named by a hash
+of the sources and flags (so an edit rebuilds and an unchanged tree
+reuses the library), and loaded with ``ctypes``. Importing this module
+builds nothing: the CPU tests import every module of the port.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` turns a non-zero code into an
+exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+_PACKAGE_DIR = Path(__file__).resolve().parent
+CSRC_DIR = _PACKAGE_DIR / 'csrc'
+BUILD_DIR = _PACKAGE_DIR.parent / 'build' / 'telluride_kernels'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_VOID_P = ctypes.c_void_p
+_INT = ctypes.c_int
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob('*.cu'))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / ('libtelluride_kernels_%s.so' % digest.hexdigest()[:16])
+
+
+def _nvcc() -> str:
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    default = '/usr/local/cuda/bin/nvcc'
+    if os.path.exists(default):
+        return default
+    raise RuntimeError('nvcc not found (PATH or /usr/local/cuda/bin): the '
+                       'CUDA kernels cannot be built.')
+
+
+def build() -> Path:
+    """Compiles the kernels unless the library for these sources exists.
+
+    The compiler's output, including the ptxas register and shared
+    memory report, goes to ``build.log`` beside the library."""
+    path = library_path()
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    (BUILD_DIR / 'build.log').write_text(' '.join(cmd) + '\n' + proc.stdout)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError('nvcc failed (rc %d):\n%s'
+                           % (proc.returncode, proc.stdout[-4000:]))
+    # Atomic: a concurrent build sees either no library or a whole one.
+    os.replace(tmp, path)
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.tdt_lag_stack_f32.argtypes = [_VOID_P, _VOID_P, _INT, _INT,
+                                          _INT, _INT, _VOID_P]
+        lib.tdt_lag_stack_f32.restype = _INT
+        lib.tdt_fused_cca_decode.argtypes = (
+            [_VOID_P] * 8 + [_INT] * 7 + [_VOID_P])
+        lib.tdt_fused_cca_decode.restype = _INT
+        lib.tdt_error_string.argtypes = [_INT]
+        lib.tdt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raises if a C entry point reported a CUDA error."""
+    if code != 0:
+        message = library().tdt_error_string(code).decode()
+        raise RuntimeError('%s: CUDA error %d (%s)' % (what, code, message))
+
+
+def stream_handle(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device``."""
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,42 @@
+"""Carries weights of the JAX package across to the port.
+
+The JAX package saves a model's params pytree flattened into
+``weights.npz``, keyed by ``_flat_key`` (telluride_decoding_tpu/models/
+brain_model.py:66); for the CCA model the keys are mean1, mean2, rot1 and
+rot2. The port reads and writes the same file, so this is the one place
+that turns such a flat dict into the port's module.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+from telluride_decoding_torch.models.cca import BrainModelCCA
+
+
+def cca_params_from_numpy(flat: Dict[str, np.ndarray], device,
+                          config: Optional[dict] = None) -> BrainModelCCA:
+    """BrainModelCCA on ``device`` holding the flat dict's weights.
+
+    ``config`` is the model.json constructor config; without one it is
+    read off the weight shapes.
+    """
+    if config is None:
+        rot1 = np.asarray(flat['rot1'])
+        config = {'cca_dims': int(rot1.shape[1]),
+                  'regularization_lambda': 0.0,
+                  'input1_width': int(rot1.shape[0]),
+                  'input2_width': int(np.asarray(flat['rot2']).shape[0])}
+    model = BrainModelCCA(**config, device=device)
+    model._restore_params(flat)
+    if flat:
+        widths = (model.rot1.shape[0], model.rot2.shape[0])
+        if (model.mean1.shape != (1, widths[0]) or
+                model.mean2.shape != (1, widths[1]) or
+                model.rot1.shape[1] != model.rot2.shape[1]):
+            raise ValueError('Inconsistent CCA weights: %s.'
+                             % {k: tuple(np.shape(v))
+                                for k, v in flat.items()})
+    return model

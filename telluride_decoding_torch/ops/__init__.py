@@ -1,0 +1,1 @@
+"""Tensor operations and the wrappers of the hand-written kernels."""

@@ -1,0 +1,85 @@
+"""Canonical correlation analysis (port of solvers/cca.py).
+
+Covariances come from MomentStats with the reference's normalization;
+whitening uses eigh of the symmetrized covariances with tiny eigen-dims
+zeroed; the canonical directions come from one SVD. Float32 throughout
+with TF32 off, as the JAX package runs it at Precision.HIGHEST.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from telluride_decoding_torch.ops.covariance import (MomentStats,
+                                                     blocked_moments,
+                                                     moments_from_arrays)
+
+
+class CcaSolution(NamedTuple):
+    rot_x: torch.Tensor        # [Dx, dim]
+    rot_y: torch.Tensor        # [Dy, dim]
+    mean_x: torch.Tensor       # [1, Dx]
+    mean_y: torch.Tensor       # [1, Dy]
+    eigenvalues: torch.Tensor  # [dim] canonical correlations
+
+
+def _inv_sqrt_psd(cov: torch.Tensor, eps_eig: float) -> torch.Tensor:
+    """cov^{-1/2} for an SPD matrix, zeroing tiny eigen-dims."""
+    cov = 0.5 * (cov + cov.T)
+    vals, vecs = torch.linalg.eigh(cov)
+    inv_sqrt = torch.where(vals > eps_eig,
+                           torch.rsqrt(torch.clamp(vals, min=eps_eig)),
+                           torch.zeros_like(vals))
+    return (vecs * inv_sqrt[None, :]) @ vecs.T
+
+
+def cca_covariances_from_stats(stats: MomentStats):
+    """The reference's CCA covariance normalization.
+
+    The quirk (telluride_decoding_tpu/solvers/cca.py:53-74): sums divide
+    by (N - 1) while the subtracted mean outer products use the /N means.
+    Returns (mean_x, mean_y, cov_xx, cov_yy, cov_xy), unsymmetrized.
+    """
+    n = stats.count
+    mean_x = stats.sum_x / n
+    mean_y = stats.sum_y / n
+    denom = n - 1.0
+    cov_xx = stats.sxx / denom - torch.outer(mean_x, mean_x)
+    cov_yy = stats.syy / denom - torch.outer(mean_y, mean_y)
+    cov_xy = stats.sxy / denom - torch.outer(mean_x, mean_y)
+    return mean_x, mean_y, cov_xx, cov_yy, cov_xy
+
+
+def solve_cca_from_moments(stats: MomentStats, dim: int,
+                           regularization: float = 0.1,
+                           eps_eig: float = 1e-12) -> CcaSolution:
+    """CCA rotations from sufficient statistics, regularized by
+    ``regularization * I`` on both covariances."""
+    (mean_x, mean_y, cov_xx, cov_yy,
+     cov_xy) = cca_covariances_from_stats(stats)
+    eye_x = torch.eye(cov_xx.shape[0], dtype=cov_xx.dtype,
+                      device=cov_xx.device)
+    eye_y = torch.eye(cov_yy.shape[0], dtype=cov_yy.dtype,
+                      device=cov_yy.device)
+    k11 = _inv_sqrt_psd(cov_xx + regularization * eye_x, eps_eig)
+    k22 = _inv_sqrt_psd(cov_yy + regularization * eye_y, eps_eig)
+    u, e, vt = torch.linalg.svd(k11 @ cov_xy @ k22, full_matrices=False)
+    return CcaSolution(rot_x=k11 @ u[:, :dim], rot_y=k22 @ vt.T[:, :dim],
+                       mean_x=mean_x[None, :], mean_y=mean_y[None, :],
+                       eigenvalues=e[:dim])
+
+
+def calculate_cca_parameters(x: torch.Tensor, y: torch.Tensor, dim: int,
+                             regularization: float = 0.1,
+                             eps_eig: float = 1e-12,
+                             block: int = 8192) -> CcaSolution:
+    """End-to-end CCA fit for in-memory [N, Dx] / [N, Dy] tensors."""
+    x = x.float()
+    y = y.float()
+    if x.shape[0] > block:
+        stats = blocked_moments(x, y, block=block, want_syy=True)
+    else:
+        stats = moments_from_arrays(x, y, want_syy=True)
+    return solve_cca_from_moments(stats, dim, regularization, eps_eig)

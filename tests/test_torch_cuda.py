@@ -1,0 +1,74 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA card and skips without one. The file
+imports neither JAX nor the JAX package and uses no conftest fixture,
+so it also runs on a machine without JAX:
+
+  python -m pytest --noconftest tests/test_torch_cuda.py
+
+Tolerances: the lag stack is a copy, so bit-exact. The decode: float32
+rtol 1e-4 / atol 1e-4 (sums in another order, the JAX suite's bound);
+bf16 rtol 1e-3 / atol 1e-3, since both sides read the same bf16 data and
+rotations and accumulate in float32.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from telluride_decoding_torch.ops import decode_kernel, lagstack
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from telluride_decoding_torch.device import cuda_device
+    return cuda_device()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,c,pre,post', [(12000, 69, 0, 36),
+                                          (1237, 5, 3, 2), (7, 3, 5, 9)])
+def test_lag_stack_bit_exact(cuda, n, c, pre, post):
+    x = torch.randn((n, c), device=cuda)
+    before = lagstack.lag_stack.launches
+    got = lagstack.lag_stack(x, pre, post)
+    torch.cuda.synchronize()
+    assert lagstack.lag_stack.launches == before + 1
+    assert torch.equal(got, lagstack.lag_stack_reference(x, pre, post))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('w,t,dtype', [(32, 1, torch.float32),
+                                       (7, 13, torch.float32),
+                                       (512, 100, torch.bfloat16)])
+def test_fused_cca_decode_matches_plain(cuda, w, t, dtype):
+    rng = np.random.RandomState(0)
+    d, f1, f2 = 10, 2553, 31
+
+    def tensor(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+    folded = decode_kernel.fold_decode_params({
+        'mean1': tensor(rng.randn(1, f1)), 'mean2': tensor(rng.randn(1, f2)),
+        'rot1': tensor(rng.randn(f1, d) * 0.02),
+        'rot2': tensor(rng.randn(f2, d) * 0.2),
+        'corr_mean_x': tensor(rng.randn(d) * 0.1),
+        'corr_mean_y': tensor(rng.randn(d) * 0.1),
+        'corr_power': tensor(1.0 + rng.rand(d)),
+        'lda_w': tensor(rng.randn(d, 2)), 'lda_slope': tensor(1.3),
+        'lda_intercept': tensor(-0.25)})
+    x1 = torch.randn((w, t, f1), device=cuda).to(dtype)
+    x2a = torch.randn((w, t, f2), device=cuda).to(dtype)
+    x2b = torch.randn((w, t, f2), device=cuda).to(dtype)
+    before = decode_kernel.fused_cca_decode.launches
+    got = decode_kernel.fused_cca_decode(folded, x1, x2a, x2b)
+    assert decode_kernel.fused_cca_decode.launches == before + 1
+    want = torch.stack([
+        decode_kernel.fused_cca_decode_reference(folded, x1, x2a),
+        decode_kernel.fused_cca_decode_reference(folded, x1, x2b)])
+    tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else
+           dict(rtol=1e-3, atol=1e-3))
+    torch.testing.assert_close(got, want, **tol)
+    with pytest.raises(ValueError):     # Mixed dtypes raise, never fall back.
+        decode_kernel.fused_cca_decode(folded, x1, x2a.double())
