@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port (telluride_decoding_torch).
 
-Builds the hand-written CUDA kernels from telluride_decoding_torch/csrc,
-checks each against its plain PyTorch version on the card at the shapes
-the main path gives it, then drives the main path once at codelab width
-(69 EEG channels x 37 lags = 2553 columns, 1 audio channel x 31 lags,
-10 canonical dimensions):
+Builds the hand-written CUDA kernels from telluride_decoding_torch/csrc
+and the native TFRecord codec, checks each kernel against its plain
+PyTorch version on the card at the shapes the main paths give it, then
+drives the two main paths once:
 
-  1. seeded synthetic recordings: EEG from the attended speaker's
-     intensity through a random TRF plus noise, two speakers, and a
-     served stream whose attention switches at its midpoint;
-  2. file-wise CCA fit on the card (lag stack kernel + moments + solve);
-  3. decoder training (correlation statistics + scaled LDA), saved as a
-     model directory;
-  4. streaming serve through ``telluride_decoding_torch.cli.serve.main``
-     (fused CCA decode kernel per chunk), whose decisions must track the
-     planted switch and whose scores must match a CPU decode of the same
-     stream with the plain versions.
+  codelab path (69 EEG channels x 37 lags = 2553 columns, 1 audio
+  channel x 31 lags, 10 canonical dimensions, 100 Hz): seeded synthetic
+  recordings written as TFRecords -> file-wise CCA fit (lag stack kernel
+  K2 + moments + solve) -> decoder training -> streaming serve through
+  ``telluride_decoding_torch.cli.serve.main`` (fused CCA decode kernel
+  K1 per chunk);
+
+  ingest path, at KULeuven width (64 EEG channels x 22 lags = 1408
+  columns, intensity x 31 lags, 5 canonical dimensions, 32 Hz): a seeded
+  KULeuven-shaped cache (one subject, 8 trials of 6 minutes of 128 Hz
+  EEG, 4 int16 wavs at 44.1 kHz) -> ``cli.regression_data.main``
+  (intensity envelopes by kernel K3) -> TFRecords, held against a CPU
+  ingest -> TFExampleData -> fit (K2) -> training -> serve of the
+  held-out trial (K1), whose attention switches at its midpoint.
+
+Decisions must track the planted switch and served scores must match a
+CPU decode of the same stream with the plain versions.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -29,6 +35,7 @@ last line is {"ok": true, "device": {...}}.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -40,9 +47,21 @@ IN2_PRE, IN2_POST = 15, 15                     # 1 x 31 columns.
 CCA_DIMS = 10
 TRAIN_FILES, TRAIN_FRAMES, STREAM_FRAMES = 4, 12000, 6000
 FLAGSHIP = (512, 100)                          # Windows x frames.
+# KULeuven CCA preset (telluride_decoding_tpu/cli/regression.py:453-469,
+# :520-525): EEG post context 21 (64 x 22 = 1408 columns), intensity
+# pre/post 15 (31 columns), 5 canonical dimensions, 32 Hz.
+KULEUVEN = dict(channels=64, eeg_fs=128, audio_fs=44100, seconds=360,
+                trials=8, tracks=4, frame_rate=32, dims=5,
+                contexts=(0, 21, 15, 15))
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_TOL = dict(rtol=1e-3, atol=1e-3)
+K3_TOL = dict(rtol=0, atol=1e-4)
 SERVE_TOL = 1e-4
+INGEST_TOL = 1e-4
+SOSFILT_TOL = 1e-3
+HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, data sheet.
+REPO = os.path.dirname(os.path.abspath(__file__))
+BUILD = os.path.join(REPO, 'build')
 
 
 def log(*parts):
@@ -72,6 +91,71 @@ def interleaved_ms(torch, kernel_fn, plain_fn, reps=20):
     k2 = time_ms(torch, kernel_fn, reps)
     p2 = time_ms(torch, plain_fn, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def device_ms(torch, fn, symbol, reps=10):
+    """Mean device time in ms of the kernel whose name holds ``symbol``
+    over ``reps`` calls, as torch.profiler records it; None when the
+    profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for event in prof.key_averages():
+        if symbol in event.key:
+            total_us += getattr(event, 'device_time_total',
+                                getattr(event, 'cuda_time_total', 0.0))
+            count += event.count
+    return total_us / count / 1e3 if count else None
+
+
+def device_busy(torch, fn):
+    """(wall s, kernel s, copy s) of one call of ``fn`` under
+    torch.profiler: the card's busy time split into kernels and memory
+    copies/sets, beside the host clock. The busy times are None when the
+    profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernel_us = copy_us = 0.0
+    for event in prof.events():
+        if event.device_type != DeviceType.CUDA:
+            continue
+        us = event.time_range.elapsed_us()
+        if 'memcpy' in event.name.lower() or 'memset' in event.name.lower():
+            copy_us += us
+        else:
+            kernel_us += us
+    if kernel_us == copy_us == 0.0:
+        return wall, None, None
+    return wall, kernel_us / 1e6, copy_us / 1e6
+
+
+def fmt_busy(busy):
+    wall, kernel_s, copy_s = busy
+    if kernel_s is None:
+        return '%.3f s, device time not measured' % wall
+    return ('%.3f s, the card busy %.4f s in kernels and %.4f s in copies '
+            '(idle %.1f%%)' % (wall, kernel_s, copy_s,
+                               100 * (1 - (kernel_s + copy_s) / wall)))
+
+
+def fmt_ms(ms):
+    return 'not measured' if ms is None else '%.4f ms' % ms
+
+
+def bound_ms(num_bytes):
+    """Least time for the bytes at the card's memory rate."""
+    return num_bytes / HBM_BYTES_PER_S * 1e3
 
 
 def max_err(torch, got, want):
@@ -111,17 +195,21 @@ def phase_device(torch):
     if capability != (9, 0):
         raise AssertionError('needs compute capability (9, 0) for sm_90a, '
                              'got %s' % (capability,))
-    from telluride_decoding_torch import kernels
+    from telluride_decoding_torch import _native, kernels
     t0 = time.perf_counter()
     path = kernels.build()
     log('phase 1 build: %s in %.1f s' % (path, time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    log('phase 1 native codec: %s in %.1f s'
+        % (_native.build(), time.perf_counter() - t0))
     log_lines = (kernels.BUILD_DIR / 'build.log').read_text().splitlines()
     entry = None
     for line in log_lines:
         if 'Compiling entry function' in line:
             entry = line.split("'")[1]
         elif entry and 'registers' in line and (
-                'lag_stack' in entry or 'Li10E' in entry):
+                'lag_stack' in entry or 'Li10E' in entry or
+                'envelope' in entry):
             log('phase 1 ptxas: %s: %s' % (entry, line.split(':', 1)[1]
                                             .strip()))
             entry = None
@@ -135,7 +223,8 @@ def phase_lagstack(torch, device):
     worst = 0.0
     for n, c, pre, post in [(TRAIN_FRAMES, IN1_CHANNELS, PRE, POST),
                             (STREAM_FRAMES, 1, IN2_PRE, IN2_POST),
-                            (1237, 5, 3, 2), (7, 3, 5, 9)]:
+                            (11520, 64, 0, 21), (1237, 5, 3, 2),
+                            (7, 3, 5, 9)]:
         x = torch.randn((n, c), generator=gen, device=device)
         got = lag_stack(x, pre, post)
         want = lag_stack_reference(x, pre, post)
@@ -150,11 +239,16 @@ def phase_lagstack(torch, device):
         torch, lambda: lag_stack(x, PRE, POST),
         lambda: lag_stack_reference(x, PRE, POST))
     out_bytes = TRAIN_FRAMES * IN1_CHANNELS * (PRE + 1 + POST) * 4
-    log('phase 2 lag_stack: bit-exact at 4 shapes; [%d, %d] pre %d post %d: '
-        'kernel %.4f ms (%.0f GB/s written), plain %.4f ms'
+    bound = bound_ms(x.numel() * 4 + out_bytes)
+    on_device = device_ms(torch, lambda: lag_stack(x, PRE, POST),
+                          'lag_stack_kernel')
+    log('phase 2 lag_stack: bit-exact at 5 shapes; [%d, %d] pre %d post %d: '
+        'kernel %.4f ms (%.0f GB/s written), on the device %s, plain %.4f '
+        'ms, bound %.4f ms'
         % (TRAIN_FRAMES, IN1_CHANNELS, PRE, POST, ms, out_bytes / ms / 1e6,
-           plain_ms))
-    return {'max_abs_err': worst, 'ms': ms, 'plain_ms': plain_ms}
+           fmt_ms(on_device), plain_ms, bound))
+    return {'max_abs_err': worst, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound}
 
 
 def phase_decode(torch, device):
@@ -198,13 +292,89 @@ def phase_decode(torch, device):
         lambda: fused_cca_decode_reference(folded, x1, x2), reps=10)
     floor_ms = time_ms(torch, lambda: torch.sum(x1), reps=10)
     in_bytes = (x1.numel() + x2.numel()) * 2
+    param_bytes = sum(p.numel() * p.element_size() for p in folded)
+    bound = bound_ms(in_bytes + param_bytes + w * 4)
+    on_device = device_ms(torch, lambda: fused_cca_decode(folded, x1, x2),
+                          'fused_cca_decode_kernel')
     log('phase 3 fused_cca_decode: matches plain at T=1 N in {32, 4096} '
         'single and pair (f32), and at %d x %d x %d bf16; serving pair N=32: '
         'kernel %.4f ms, plain %.4f ms; flagship: kernel %.4f ms (%.0f GB/s), '
-        'plain %.4f ms, read floor torch.sum(x1) %.4f ms (%.0f GB/s)'
+        'on the device %s, plain %.4f ms, bound %.4f ms, read floor '
+        'torch.sum(x1) %.4f ms (%.0f GB/s)'
         % (w, t, f1, serve_ms, serve_plain_ms, ms, in_bytes / ms / 1e6,
-           plain_ms, floor_ms, x1.numel() * 2 / floor_ms / 1e6))
-    return {'max_abs_err': worst, 'ms': ms, 'plain_ms': plain_ms}
+           fmt_ms(on_device), plain_ms, bound, floor_ms,
+           x1.numel() * 2 / floor_ms / 1e6))
+    return {'max_abs_err': worst, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound}
+
+
+def phase_frontend(torch, device):
+    """K3 against its plain version at the ingest shape, the gate shape
+    of tpu_checks.py and a bucketed (valid_len) call."""
+    from telluride_decoding_torch.ops.fused_frontend import (
+        fused_envelope_lagstack, fused_envelope_lagstack_reference)
+    sizes = KULEUVEN
+    ingest_n = sizes['seconds'] * sizes['audio_fs']
+    valid_len = 1000000
+    cases = [
+        ('ingest', ingest_n, float(sizes['audio_fs']),
+         float(sizes['frame_rate']), dict(window=1.0, exponent=1.0)),
+        ('gate', 10 * 16000, 16000.0, 100.0,
+         dict(window=2.0, exponent=float(np.log10(2)), pre=3, post=3)),
+        ('valid_len', 1 << 20, 16000.0, 100.0,
+         dict(window=2.0, pre=2, post=1, valid_len=valid_len,
+              valid_out=int(round(valid_len / 16000 * 100)))),
+    ]
+    gen = torch.Generator(device=device).manual_seed(3)
+    worst, result = 0.0, None
+    for name, n, fs_in, fs_out, args in cases:
+        audio = torch.randn((n,), generator=gen, device=device)
+
+        def kernel():
+            return fused_envelope_lagstack(audio, fs_in, fs_out, **args)
+
+        def plain():
+            return fused_envelope_lagstack_reference(audio, fs_in, fs_out,
+                                                     **args)
+        got = kernel()
+        worst = max(worst, require_close(
+            torch, 'fused_envelope_lagstack %s' % name, got, plain(),
+            K3_TOL))
+        ms, plain_ms = interleaved_ms(torch, kernel, plain, reps=10)
+        num_bytes = args.get('valid_len', n) * 4 + got.numel() * 4
+        bound = bound_ms(num_bytes)
+        on_device = device_ms(torch, kernel, 'envelope_lagstack_kernel')
+        log('phase 5 fused_envelope_lagstack %s: [%d] %g -> %g Hz %s -> %s;'
+            ' kernel %.4f ms (%.0f GB/s), on the device %s, plain %.4f ms, '
+            '%.1f MB moved, bound %.4f ms (%.0f%% of the kernel time)'
+            % (name, n, fs_in, fs_out, args, tuple(got.shape), ms,
+               num_bytes / ms / 1e6, fmt_ms(on_device), plain_ms,
+               num_bytes / 1e6, bound, 100 * bound / ms))
+        if name == 'ingest':
+            result = {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound}
+    result['max_abs_err'] = worst
+    return result
+
+
+def phase_sosfilt(torch, device):
+    """The streaming EEG highpass on the card vs scipy in float64, at
+    the tpu_checks.py gate (4th order 0.5 Hz at 128 Hz, [46080, 64])."""
+    import scipy.signal
+    from telluride_decoding_torch.signal import filters
+    rng = np.random.RandomState(4)
+    x = rng.randn(46080, 64).astype(np.float32)
+    sos = filters.butter_sos(4, 0.5, 'hp', fs=128.0)
+    want, _ = scipy.signal.sosfilt(sos, x.astype(np.float64), axis=0,
+                                   zi=np.zeros((sos.shape[0], 2, 64)))
+    xt = torch.from_numpy(x).to(device)
+    got, _ = filters.sosfilt(sos, xt)
+    err = float(np.max(np.abs(got.cpu().numpy() - want)))
+    if not err < SOSFILT_TOL:
+        raise AssertionError('sosfilt differs from scipy by %g' % err)
+    ms = time_ms(torch, lambda: filters.sosfilt(sos, xt), reps=5)
+    log('phase 6 sosfilt: [46080, 64] 4th-order 0.5 Hz highpass at 128 Hz: '
+        'max abs err %.3g vs scipy float64 (limit %g), %.3f ms on the card'
+        % (err, SOSFILT_TOL, ms))
 
 
 def _speaker(rng, n):
@@ -239,47 +409,75 @@ def synthetic_recordings(seed, channels, files, frames, stream_frames):
     return train, stream
 
 
-def run_slice(device, model_dir, channels=IN1_CHANNELS, files=TRAIN_FILES,
-              frames=TRAIN_FRAMES, stream_frames=STREAM_FRAMES,
-              dims=CCA_DIMS, contexts=(PRE, POST, IN2_PRE, IN2_POST)):
-    """Fit, train, save and serve; returns (decisions, summary, times)."""
+def write_records(recordings, data_dir):
+    """One TFRecord file per (eeg, attended, unattended) recording, with
+    the fields eeg, intensity and intensity2."""
+    from telluride_decoding_torch.data import records
+    for i, (eeg, a1, a2) in enumerate(recordings):
+        records.convert_data_to_tfrecords(
+            {'eeg': eeg, 'intensity': a1, 'intensity2': a2},
+            os.path.join(data_dir, 'trial_%02d.tfrecords' % i))
+
+
+def brain_data(data_dir, device, in2, frame_rate, contexts, **patterns):
+    """TFExampleData: eeg (input_1) and ``in2`` (input_2), lag contexts
+    (pre, post, in2 pre, in2 post)."""
+    from telluride_decoding_torch.data.brain_data import TFExampleData
+    pre, post, pre2, post2 = contexts
+    return TFExampleData('eeg', 'intensity', frame_rate, pre_context=pre,
+                         post_context=post, in2_fields=in2,
+                         in2_pre_context=pre2, in2_post_context=post2,
+                         data_dir=data_dir, device=device, **patterns)
+
+
+def stacked_batches(data, mode):
+    """(input_dict, output) per file of ``mode``, lag stacked on the
+    data's device (kernel K2 on CUDA)."""
     import torch
-    from telluride_decoding_torch.cli import serve
-    from telluride_decoding_torch.decode.infer_decoder import CCADecoder
-    from telluride_decoding_torch.models.cca import BrainModelCCA
     from telluride_decoding_torch.ops.lagstack import lag_stack
 
-    pre, post, pre2, post2 = contexts
-    train, stream = synthetic_recordings(7, channels, files, frames,
-                                         stream_frames)
+    def stack(a, pre, post):
+        return lag_stack(torch.as_tensor(a, device=data.device), pre, post)
+    for _, (in1, in2, out, _) in data.iter_file_arrays(
+            mode, temporal_context=False):
+        n = min(in1.shape[0], in2.shape[0], out.shape[0])
+        yield ({'input_1': stack(in1, data.in1_pre_context,
+                                 data.in1_post_context)[:n],
+                'input_2': stack(in2, data.in2_pre_context,
+                                 data.in2_post_context)[:n]}, out[:n])
+
+
+def fit_and_save(model_dir, attended, unattended, dims, mode='train'):
+    """CCA fit from the attended pairing's files, decoder training on
+    unattended vs attended, saved as a model directory; returns times."""
+    from telluride_decoding_torch.decode.infer_decoder import CCADecoder
+    from telluride_decoding_torch.models.cca import BrainModelCCA
     times = {}
     t0 = time.perf_counter()
     model = BrainModelCCA(cca_dims=dims, regularization_lambda=1e-3,
-                          device=device)
-    model.fit_streaming([(e, a) for e, a, _ in train], pre=pre, post=post,
-                        pre_y=pre2, post_y=post2)
+                          device=attended.device)
+    model.fit_streaming(attended, mode)
     times['fit_s'] = time.perf_counter() - t0
-
     t0 = time.perf_counter()
-
-    def dataset(speaker):
-        for recording in train:
-            eeg = torch.as_tensor(recording[0], device=model.device)
-            audio = torch.as_tensor(recording[speaker], device=model.device)
-            yield ({'input_1': lag_stack(eeg, pre, post),
-                    'input_2': lag_stack(audio, pre2, post2)},
-                   recording[speaker])
-    decoder = CCADecoder(model, reduction='lda', device=device)
-    dprime = decoder.train(dataset(2), dataset(1), window_size=100)
-    model.add_metadata({'pre_context': pre, 'post_context': post,
-                        'input2_pre_context': pre2,
-                        'input2_post_context': post2,
+    decoder = CCADecoder(model, reduction='lda', device=attended.device)
+    times['dprime'] = decoder.train(stacked_batches(unattended, mode),
+                                    stacked_batches(attended, mode),
+                                    window_size=100)
+    model.add_metadata({'pre_context': attended.in1_pre_context,
+                        'post_context': attended.in1_post_context,
+                        'input2_pre_context': attended.in2_pre_context,
+                        'input2_post_context': attended.in2_post_context,
                         'dnn_regressor': 'cca'})
     model.save(model_dir)
     decoder.save_parameters(os.path.join(model_dir, 'decoder_model.json'))
     times['train_s'] = time.perf_counter() - t0
-    times['dprime'] = dprime
+    return times
 
+
+def serve_stream(model_dir, stream, device, frame_rate):
+    """Serves (eeg, audio1, audio2) through cli.serve.main; returns the
+    decision records, the summary line and the serve seconds."""
+    from telluride_decoding_torch.cli import serve
     stream_path = os.path.join(model_dir, 'stream.npz')
     out_path = os.path.join(model_dir, 'decisions.jsonl')
     np.savez(stream_path, eeg=stream[0], audio1=stream[1], audio2=stream[2])
@@ -287,17 +485,40 @@ def run_slice(device, model_dir, channels=IN1_CHANNELS, files=TRAIN_FILES,
     serve.main(['--serve_model_dir', model_dir, '--serve_input', stream_path,
                 '--serve_output', out_path, '--chunk_size', '32',
                 '--serve_window_width', '100', '--serve_window_step', '50',
-                '--serve_decoder', 'wta', '--serve_device', str(device)])
-    times['serve_s'] = time.perf_counter() - t0
+                '--serve_decoder', 'wta', '--serve_frame_rate',
+                str(frame_rate), '--serve_device', str(device)])
+    seconds = time.perf_counter() - t0
     with open(out_path) as f:
         lines = [json.loads(line) for line in f]
-    return [l for l in lines if 'window' in l], lines[-1], stream, times
+    return [l for l in lines if 'window' in l], lines[-1], seconds
 
 
-def check_decisions(decisions, summary, stream_frames=STREAM_FRAMES):
+def run_slice(device, model_dir, channels=IN1_CHANNELS, files=TRAIN_FILES,
+              frames=TRAIN_FRAMES, stream_frames=STREAM_FRAMES,
+              dims=CCA_DIMS, contexts=(PRE, POST, IN2_PRE, IN2_POST)):
+    """Codelab path: records, fit, train, save and serve; returns
+    (decisions, summary, stream, times)."""
+    train, stream = synthetic_recordings(7, channels, files, frames,
+                                         stream_frames)
+    data_dir = os.path.join(model_dir, 'records')
+    shutil.rmtree(data_dir, ignore_errors=True)
+    write_records(train, data_dir)
+    patterns = dict(train_file_pattern='trial')
+    times = fit_and_save(
+        model_dir,
+        brain_data(data_dir, device, 'intensity', 100, contexts, **patterns),
+        brain_data(data_dir, device, 'intensity2', 100, contexts,
+                   **patterns), dims)
+    decisions, summary, times['serve_s'] = serve_stream(model_dir, stream,
+                                                        device, 100)
+    return decisions, summary, stream, times
+
+
+def check_decisions(decisions, summary, stream_frames=STREAM_FRAMES,
+                    frame_rate=100.0):
     """Fraction of windows on the planted side of the switch; raises
     unless it is above 0.9 and every score is finite."""
-    switch_s = (stream_frames // 2) / 100.0
+    switch_s = (stream_frames // 2) / frame_rate
     if not decisions or summary.get('windows') != len(decisions):
         raise AssertionError('serve produced %d decisions, summary %s'
                              % (len(decisions), summary))
@@ -338,29 +559,269 @@ def check_against_plain(decisions, model_dir, stream,
     return worst
 
 
-def phase_slice(torch, device, smi):
+def reset_launches():
     from telluride_decoding_torch.ops.decode_kernel import fused_cca_decode
+    from telluride_decoding_torch.ops.fused_frontend import (
+        fused_envelope_lagstack)
     from telluride_decoding_torch.ops.lagstack import lag_stack
-    model_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             'build', 'chip_smoke_model')
-    lag_stack.launches = 0
-    fused_cca_decode.launches = 0
+    counters = {'fused_cca_decode': fused_cca_decode, 'lag_stack': lag_stack,
+                'fused_envelope_lagstack': fused_envelope_lagstack}
+    for fn in counters.values():
+        fn.launches = 0
+    return lambda: {name: fn.launches for name, fn in counters.items()}
+
+
+def require_launched(launches, names, path):
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError('the %s path never launched %s'
+                                 % (path, name))
+
+
+def phase_slice(torch, device, smi):
+    model_dir = os.path.join(BUILD, 'chip_smoke_model')
+    read_launches = reset_launches()
     decisions, summary, stream, times = run_slice(device, model_dir)
-    launches = {'lag_stack': lag_stack.launches,
-                'fused_cca_decode': fused_cca_decode.launches}
+    launches = read_launches()
     correct = check_decisions(decisions, summary)
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError('the main path never launched %s' % name)
+    require_launched(launches, ('lag_stack', 'fused_cca_decode'), 'codelab')
     worst = check_against_plain(decisions, model_dir, stream)
-    log('phase 4 slice: fit %.2f s, train %.2f s (dprime %.2f), serve %.2f s;'
-        ' %d windows served, %.3f on the planted side of the switch; '
-        'latency p50 %.3f ms p95 %.3f ms; served scores within %.2g of the '
-        'plain CPU decode; launches %s; %s'
+    busy = device_busy(torch, lambda: serve_stream(model_dir, stream, device,
+                                                   100))
+    log('phase 4 codelab slice: fit %.2f s, train %.2f s (dprime %.2f), '
+        'serve %.2f s; %d windows served, %.3f on the planted side of the '
+        'switch; latency p50 %.3f ms p95 %.3f ms; served scores within %.2g '
+        'of the plain CPU decode; launches %s; profiled serve %s; %s'
         % (times['fit_s'], times['train_s'], times['dprime'],
            times['serve_s'], len(decisions), correct,
            summary['latency_p50_ms'], summary['latency_p95_ms'], worst,
-           launches, smi))
+           launches, fmt_busy(busy), smi))
+    return launches
+
+
+def _slow_envelope(rng, n, fs):
+    """A positive envelope with knots every quarter second."""
+    step = max(1, int(fs // 4))
+    raw = 0.3 + np.abs(rng.randn(n // step + 2))
+    idx = np.arange(n) / step
+    lo = idx.astype(int)
+    frac = idx - lo
+    return (1 - frac) * raw[lo] + frac * raw[lo + 1]
+
+
+def build_kuleuven_cache(cache_dir, seed=5, channels=64, eeg_fs=128,
+                         audio_fs=44100, seconds=360, trials=8, tracks=4,
+                         **_):
+    """A seeded one-subject KULeuven-shaped cache: ``S1.mat`` with
+    ``trials`` trials of ``seconds`` of EEG at ``eeg_fs`` (float32), the
+    attended ear alternating L/R, and ``tracks`` mono int16 wavs at
+    ``audio_fs``: a noise carrier times a slow positive envelope. The
+    EEG is the attended track's envelope through a random TRF plus
+    noise; in the last trial, the held-out one, it follows the attended
+    track for the first half and the other for the second. Returns the
+    held-out trial's name."""
+    import scipy.io as spio
+    import scipy.io.wavfile
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(cache_dir, 'stimuli'), exist_ok=True)
+    n_eeg, n_audio = seconds * eeg_fs, seconds * audio_fs
+    names = ['part%d_track%d' % (k // 2 + 1, k % 2 + 1)
+             for k in range(tracks)]
+    envelopes = []
+    for name in names:
+        env = _slow_envelope(rng, n_eeg, eeg_fs)
+        envelopes.append(env)
+        audio_env = np.interp(np.arange(n_audio) / audio_fs,
+                              np.arange(n_eeg) / eeg_fs, env)
+        wav = 3000.0 * audio_env * rng.randn(n_audio)
+        scipy.io.wavfile.write(
+            os.path.join(cache_dir, 'stimuli', name + '.wav'), audio_fs,
+            np.clip(wav, -32767, 32767).astype(np.int16))
+        del audio_env, wav
+    lags = np.arange(16)
+    trf = rng.randn(channels, lags.size) * np.exp(-lags / 4.0)
+    mat_trials = np.empty((trials,), object)
+    for t in range(trials):
+        pair = [(2 * t) % tracks, (2 * t + 1) % tracks]
+        ear = 'L' if t % 2 == 0 else 'R'
+        attended = envelopes[pair[0 if ear == 'L' else 1]]
+        if t == trials - 1:
+            other = envelopes[pair[1 if ear == 'L' else 0]]
+            attended = np.where(np.arange(n_eeg) < n_eeg // 2, attended,
+                                other)
+        clean = np.stack([np.convolve(attended, trf[c])[:n_eeg]
+                          for c in range(channels)], axis=1)
+        eeg = (clean + 2.0 * rng.randn(n_eeg, channels)).astype(np.float32)
+        mat_trials[t] = {'attended_ear': ear,
+                         'stimuli': np.array([names[k] for k in pair],
+                                             dtype=object),
+                         'RawData': {'EegData': eeg},
+                         'FileHeader': {'SampleRate': float(eeg_fs)}}
+    spio.savemat(os.path.join(cache_dir, 'S1.mat'),
+                 {'preproc_trials': mat_trials})
+    return 'S1_T%d' % (trials - 1)
+
+
+def ingest(cache_dir, tf_dir, device, frame_rate):
+    """Runs regression_data.main on the cache; returns its seconds."""
+    from telluride_decoding_torch.cli import regression_data
+    shutil.rmtree(tf_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    rc = regression_data.main(['--type', 'kuleuven', '--cache_dir',
+                               cache_dir, '--tf_output_dir', tf_dir,
+                               '--desired_frame_rate', str(frame_rate),
+                               '--device', str(device)])
+    if rc != 0:
+        raise AssertionError('regression_data.main returned %d' % rc)
+    return time.perf_counter() - t0
+
+
+def compare_ingests(got_dir, want_dir):
+    """Max abs difference over every field of every file of two ingests;
+    raises unless the file sets are equal and it is within INGEST_TOL."""
+    from telluride_decoding_torch.data import records
+
+    def files(d):
+        return sorted(os.path.relpath(os.path.join(root, f), d)
+                      for root, _, names in os.walk(d)
+                      for f in names if f.endswith('.tfrecords'))
+    names = files(got_dir)
+    if not names or names != files(want_dir):
+        raise AssertionError('ingests wrote different files: %s vs %s'
+                             % (names, files(want_dir)))
+    worst = 0.0
+    for name in names:
+        got = records.read_tfrecords(os.path.join(got_dir, name))
+        want = records.read_tfrecords(os.path.join(want_dir, name))
+        if set(got) != set(want):
+            raise AssertionError('%s: fields %s vs %s'
+                                 % (name, sorted(got), sorted(want)))
+        for k in want:
+            if got[k].shape != want[k].shape:
+                raise AssertionError('%s:%s shape %s vs %s' % (
+                    name, k, got[k].shape, want[k].shape))
+            worst = max(worst, float(np.max(np.abs(got[k] - want[k]))))
+    if worst > INGEST_TOL:
+        raise AssertionError('ingest on %s differs from the CPU ingest by %g'
+                             % (got_dir, worst))
+    return worst, len(names)
+
+
+def run_ingest_slice(device, work_dir, compare_device='cpu', **sizes):
+    """Ingest path: cache -> TFRecords (on ``device`` and, to compare,
+    on ``compare_device``) -> fit -> train -> serve of the held-out
+    trial. Returns (decisions, summary, stream, times, launches,
+    model_dir), the launches counted over the path on ``device`` alone."""
+    from telluride_decoding_torch.data import records
+    sizes = dict(KULEUVEN, **sizes)
+    rate, contexts = sizes['frame_rate'], sizes['contexts']
+    cache_dir = os.path.join(work_dir, 'kuleuven_cache')
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    held_out = build_kuleuven_cache(cache_dir, **sizes)
+    times = {'cache_s': time.perf_counter() - t0}
+    tf_dir = os.path.join(work_dir, 'kuleuven_tf')
+    compare_dir = os.path.join(work_dir, 'kuleuven_tf_' + compare_device)
+    times['compare_ingest_s'] = ingest(cache_dir, compare_dir,
+                                       compare_device, rate)
+    model_dir = os.path.join(work_dir, 'kuleuven_model')
+    shutil.rmtree(model_dir, ignore_errors=True)
+    read_launches = reset_launches()
+    times['ingest_s'] = ingest(cache_dir, tf_dir, device, rate)
+    patterns = dict(train_file_pattern='allbut',
+                    validate_file_pattern=held_out + r'\.tfrecords',
+                    test_file_pattern=held_out + r'\.tfrecords')
+    times.update(fit_and_save(
+        model_dir,
+        brain_data(tf_dir, device, 'intensity', rate, contexts, **patterns),
+        brain_data(tf_dir, device, 'intensity2', rate, contexts,
+                   **patterns), sizes['dims']))
+    held = records.read_tfrecords(os.path.join(tf_dir, 'S1',
+                                               held_out + '.tfrecords'))
+    stream = (held['eeg'], held['intensity'], held['intensity2'])
+    decisions, summary, times['serve_s'] = serve_stream(model_dir, stream,
+                                                        device, rate)
+    launches = read_launches()
+    times['ingest_err'], times['files'] = compare_ingests(tf_dir,
+                                                          compare_dir)
+    return decisions, summary, stream, times, launches, model_dir
+
+
+def ingest_split(torch, device, work_dir):
+    """Host times of the ingest's parts: the subject's .mat load; on one
+    track the wav read, the host-to-device copy of the samples and the
+    whole envelope call (copy, K3, copy back); one trial's TFRecord
+    write."""
+    import scipy.io.wavfile
+    from telluride_decoding_torch.cli import regression_data
+    from telluride_decoding_torch.data import records
+    from telluride_decoding_torch.signal.preprocess import AudioFeatures
+    cache = os.path.join(work_dir, 'kuleuven_cache')
+    t0 = time.perf_counter()
+    regression_data.loadmat(os.path.join(cache, 'S1.mat'))
+    loadmat_s = time.perf_counter() - t0
+    wav = os.path.join(cache, 'stimuli', 'part1_track1.wav')
+    t0 = time.perf_counter()
+    fs, data = scipy.io.wavfile.read(wav)
+    read_s = time.perf_counter() - t0
+    audio = data.astype(np.float32) / 32767.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.from_numpy(audio).to(device)
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    features = AudioFeatures('split', fs, KULEUVEN['frame_rate'],
+                             device=device)
+    t0 = time.perf_counter()
+    features.compute_intensity(audio[:, None])
+    envelope_s = time.perf_counter() - t0
+    trial = os.path.join(work_dir, 'kuleuven_tf', 'S1', 'S1_T0.tfrecords')
+    arrays = records.read_tfrecords(trial)
+    t0 = time.perf_counter()
+    records.convert_data_to_tfrecords(arrays, os.path.join(
+        work_dir, 'split_write.tfrecords'))
+    write_s = time.perf_counter() - t0
+    return {'loadmat_s': loadmat_s, 'wav_read_s': read_s, 'h2d_s': h2d_s,
+            'h2d_bytes': audio.nbytes, 'envelope_s': envelope_s,
+            'record_write_s': write_s}
+
+
+def phase_ingest_slice(torch, device, smi, k3_ms):
+    contexts = KULEUVEN['contexts']
+    (decisions, summary, stream, times, launches,
+     model_dir) = run_ingest_slice(device, BUILD)
+    if launches['fused_envelope_lagstack'] != 2 * KULEUVEN['trials']:
+        raise AssertionError('the ingest launched K3 %d times, not %d'
+                             % (launches['fused_envelope_lagstack'],
+                                2 * KULEUVEN['trials']))
+    require_launched(launches, ('lag_stack', 'fused_cca_decode'), 'ingest')
+    correct = check_decisions(decisions, summary, stream[0].shape[0],
+                              KULEUVEN['frame_rate'])
+    worst = check_against_plain(decisions, model_dir, stream, contexts)
+    split = ingest_split(torch, device, BUILD)
+    busy = device_busy(torch, lambda: ingest(
+        os.path.join(BUILD, 'kuleuven_cache'),
+        os.path.join(BUILD, 'kuleuven_tf_profiled'), device,
+        KULEUVEN['frame_rate']))
+    width = KULEUVEN['channels'] * (contexts[0] + 1 + contexts[1])
+    log('phase 7 ingest slice: cache %.1f s; ingest on the card %.2f s, on '
+        'the CPU %.2f s; %d files agree within %.2g; subject .mat load '
+        '%.4f s; per track: wav read %.4f s, host-to-device %.4f s (%.1f MB '
+        'pageable, %.2f GB/s), K3 %.4f ms, whole envelope call %.4f s; per '
+        'trial: TFRecord write %.4f s; profiled ingest %s'
+        % (times['cache_s'], times['ingest_s'], times['compare_ingest_s'],
+           times['files'], times['ingest_err'], split['loadmat_s'],
+           split['wav_read_s'], split['h2d_s'], split['h2d_bytes'] / 1e6,
+           split['h2d_bytes'] / split['h2d_s'] / 1e9, k3_ms,
+           split['envelope_s'], split['record_write_s'], fmt_busy(busy)))
+    log('phase 7 ingest slice: fit at %d + %d columns %.2f s, train %.2f s '
+        '(dprime %.2f), serve %.2f s; %d windows served, %.3f on the planted '
+        'side of the switch; latency p50 %.3f ms p95 %.3f ms; served scores '
+        'within %.2g of the plain CPU decode; launches %s; %s'
+        % (width, contexts[2] + 1 + contexts[3], times['fit_s'],
+           times['train_s'], times['dprime'], times['serve_s'],
+           len(decisions), correct, summary['latency_p50_ms'],
+           summary['latency_p95_ms'], worst, launches, smi))
     return launches
 
 
@@ -369,22 +830,31 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available.', file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, REPO)
     from telluride_decoding_torch.device import cuda_device
     device = cuda_device(0)
     smi = phase_device(torch)
     k2 = phase_lagstack(torch, device)
     k1 = phase_decode(torch, device)
-    launches = phase_slice(torch, device, smi)
+    codelab = phase_slice(torch, device, smi)
+    k3 = phase_frontend(torch, device)
+    phase_sosfilt(torch, device)
+    kuleuven = phase_ingest_slice(torch, device, smi, k3['ms'])
+    launches = {name: codelab[name] + kuleuven[name] for name in kuleuven}
+    common = dict(route='cuda', bound_by='bytes', library_ms=None)
     kernels = [
-        dict(name='fused_cca_decode', route='cuda',
+        dict(name='fused_cca_decode',
              source='telluride_decoding_torch/csrc/decode_kernel.cu',
              replaces='telluride_decoding_tpu/ops/decode_kernel.py:123',
-             launches=launches['fused_cca_decode'], **k1),
-        dict(name='lag_stack', route='cuda',
+             launches=launches['fused_cca_decode'], **k1, **common),
+        dict(name='lag_stack',
              source='telluride_decoding_torch/csrc/lagstack.cu',
              replaces='telluride_decoding_tpu/ops/lagstack.py:93',
-             launches=launches['lag_stack'], **k2),
+             launches=launches['lag_stack'], **k2, **common),
+        dict(name='fused_envelope_lagstack',
+             source='telluride_decoding_torch/csrc/fused_frontend.cu',
+             replaces='telluride_decoding_tpu/ops/fused_frontend.py:157',
+             launches=launches['fused_envelope_lagstack'], **k3, **common),
     ]
     log(smi)
     log(json.dumps({'kernels': kernels}))

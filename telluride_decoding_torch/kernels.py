@@ -1,7 +1,8 @@
 """Builds and loads the port's hand-written CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface. At first use they
-are compiled with ``nvcc`` for ``sm_90a`` into one shared library under
+are compiled with ``nvcc`` for ``sm_90a``, one compiler process per
+source started together, and linked into one shared library under
 ``build/telluride_kernels/`` at the root of the checkout, named by a hash
 of the sources and flags (so an edit rebuilds and an unchanged tree
 reuses the library), and loaded with ``ctypes``. Importing this module
@@ -27,7 +28,8 @@ _PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = _PACKAGE_DIR / 'csrc'
 BUILD_DIR = _PACKAGE_DIR.parent / 'build' / 'telluride_kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+LINK_FLAGS = ('-shared', '-gencode', 'arch=compute_90a,code=sm_90a')
 
 _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -40,7 +42,7 @@ def _sources():
 
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
-    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -61,24 +63,41 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compiles the kernels unless the library for these sources exists.
 
-    The compiler's output, including the ptxas register and shared
+    One ``nvcc -c`` per source, all started together, then one link.
+    The compilers' output, including the ptxas register and shared
     memory report, goes to ``build.log`` beside the library."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    (BUILD_DIR / 'build.log').write_text(' '.join(cmd) + '\n' + proc.stdout)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError('nvcc failed (rc %d):\n%s'
-                           % (proc.returncode, proc.stdout[-4000:]))
-    # Atomic: a concurrent build sees either no library or a whole one.
-    os.replace(tmp, path)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(work, src.stem + '.o')
+            cmd = [nvcc, *NVCC_FLAGS, '-c', str(src), '-o', obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        for cmd, _, proc in jobs:
+            output, _ = proc.communicate()
+            log.append((cmd, proc.returncode, output))
+        if all(rc == 0 for _, rc, _ in log):
+            tmp = os.path.join(work, 'lib.so')
+            cmd = [nvcc, *LINK_FLAGS, '-o', tmp] + [obj for _, obj, _ in jobs]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            log.append((cmd, proc.returncode, proc.stdout))
+        (BUILD_DIR / 'build.log').write_text(''.join(
+            ' '.join(cmd) + '\n' + output for cmd, _, output in log))
+        failed = [(cmd, rc, output) for cmd, rc, output in log if rc != 0]
+        if failed:
+            cmd, rc, output = failed[0]
+            raise RuntimeError('nvcc failed (rc %d): %s\n%s'
+                               % (rc, ' '.join(cmd), output[-4000:]))
+        # Atomic: a concurrent build sees either no library or a whole one.
+        os.replace(tmp, path)
     return path
 
 
@@ -93,6 +112,9 @@ def library() -> ctypes.CDLL:
         lib.tdt_fused_cca_decode.argtypes = (
             [_VOID_P] * 8 + [_INT] * 7 + [_VOID_P])
         lib.tdt_fused_cca_decode.restype = _INT
+        lib.tdt_fused_envelope_lagstack.argtypes = (
+            [_VOID_P] * 4 + [_INT] * 4 + [ctypes.c_float, _VOID_P])
+        lib.tdt_fused_envelope_lagstack.restype = _INT
         lib.tdt_error_string.argtypes = [_INT]
         lib.tdt_error_string.restype = ctypes.c_char_p
         _lib = lib

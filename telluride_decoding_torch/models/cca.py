@@ -2,15 +2,15 @@
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from telluride_decoding_torch.data.brain_data import device_file_moments
 from telluride_decoding_torch.models.brain_model import (BrainModel,
                                                          dataset_arrays,
                                                          register_model)
+from telluride_decoding_torch.ops.covariance import MomentStats
 from telluride_decoding_torch.solvers import cca as cca_solver
 
 
@@ -96,26 +96,17 @@ class BrainModelCCA(BrainModel):
         self._set_solution(solution)
         return {}
 
-    def fit_streaming(self, files: Iterable[Tuple[np.ndarray, np.ndarray]],
-                      *, pre: int, post: int, pre_y: int,
-                      post_y: int) -> dict:
-        """File-wise fit from RAW per-file streams (x_raw [N_i, C1],
-        y_raw [N_i, C2], arrays or tensors): each file is uploaded, lag stacked on the
-        device (kernel K2 on CUDA) with context that never crosses a
-        file boundary, and reduced to moments; the moments add up and
-        the same whitening + SVD solve runs once. Counterpart of
+    def fit_streaming(self, brain_data, mode: str = 'train', epochs: int = 1,
+                      **kwargs) -> dict:
+        """Bounded-memory fit from a BrainData source: per-file streamed
+        moments of the (input_1, input_2) pair, each file lag stacked on
+        the device (kernel K2 on CUDA) with context that never crosses a
+        file boundary, then one whitening + SVD solve. Counterpart of
         fit_streaming (telluride_decoding_tpu/models/cca.py:114-126)."""
-        total = None
-        for x_raw, y_raw in files:
-            n = min(x_raw.shape[0], y_raw.shape[0])
-            x = self.as_tensor(x_raw).float().contiguous()
-            y = self.as_tensor(y_raw).float().contiguous()
-            stats = device_file_moments(x, y, n, pre=pre, post=post,
-                                        pre_y=pre_y, post_y=post_y,
-                                        want_syy=True)
-            total = stats if total is None else total + stats
-        if total is None:
-            raise ValueError('fit_streaming got no files.')
+        del epochs, kwargs  # Deterministic: one covariance pass + SVD.
+        total = brain_data.streaming_moments(mode, y_source='input_2',
+                                             want_syy=True)
+        total = MomentStats(*(t.to(self.device) for t in total))
         width1 = total.sum_x.shape[0]
         width2 = total.sum_y.shape[0]
         self._note_widths(width1, width2)

@@ -17,8 +17,12 @@ import numpy as np
 import pytest
 import torch
 
+from telluride_decoding_tpu.data import brain_data as jax_bd
+from telluride_decoding_tpu.models import BrainModelCCA as JaxCCA
 from telluride_decoding_tpu.ops import covariance as jax_covariance
 from telluride_decoding_tpu.solvers import cca as jax_cca
+from telluride_decoding_torch.data import brain_data, records
+from telluride_decoding_torch.models.cca import BrainModelCCA
 from telluride_decoding_torch.ops import covariance
 from telluride_decoding_torch.solvers import cca
 
@@ -81,3 +85,31 @@ def test_calculate_cca_parameters_blocked_matches_jax(rng):
                                             block=1024)
     np.testing.assert_allclose(got.eigenvalues.numpy(),
                                np.asarray(want.eigenvalues), rtol=1e-4)
+
+
+def test_fit_streaming_from_tfrecords_matches_jax(rng, tmp_path):
+    """BrainModelCCA.fit_streaming(brain_data, mode) in both packages
+    over the same TFRecord files: the same canonical correlations and,
+    up to a per-column sign, the same rotations."""
+    for i in range(3):
+        x, y = _views(rng, n=700 + 50 * i)
+        records.convert_data_to_tfrecords(
+            {'eeg': x, 'intensity': y[:, :1]},
+            str(tmp_path / ('trial_%d.tfrecords' % i)))
+    args = dict(in_fields='eeg', out_field='intensity', frame_rate=100,
+                pre_context=0, post_context=2, in2_fields='intensity',
+                in2_pre_context=1, in2_post_context=1,
+                data_dir=str(tmp_path), train_file_pattern='trial')
+    got = BrainModelCCA(cca_dims=2, regularization_lambda=1e-3, device='cpu')
+    got.fit_streaming(brain_data.TFExampleData(device='cpu', **args),
+                      'train')
+    want = JaxCCA(cca_dims=2, regularization_lambda=1e-3, input1_width=36,
+                  input2_width=3)
+    want.fit_streaming(jax_bd.TFExampleData(**args), 'train')
+    np.testing.assert_allclose(got.eigenvalues, want.eigenvalues, rtol=1e-4)
+    assert got.config()['input1_width'] == 36
+    for g, w in ((got.rot1, want.rot_x), (got.rot2, want.rot_y)):
+        g = g.numpy()
+        signs = np.sign(np.sum(g * w, axis=0))
+        assert np.all(np.abs(g * signs - w) <=
+                      1e-3 * np.max(np.abs(w), axis=0))

@@ -9,14 +9,16 @@ so it also runs on a machine without JAX:
 Tolerances: the lag stack is a copy, so bit-exact. The decode: float32
 rtol 1e-4 / atol 1e-4 (sums in another order, the JAX suite's bound);
 bf16 rtol 1e-3 / atol 1e-3, since both sides read the same bf16 data and
-rotations and accumulate in float32.
+rotations and accumulate in float32. The audio envelope: atol 1e-4, the
+JAX suite's bound for its kernel (float32 window sums in another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from telluride_decoding_torch.ops import decode_kernel, lagstack
+from telluride_decoding_torch.ops import (decode_kernel, fused_frontend,
+                                          lagstack)
 
 
 @pytest.fixture
@@ -72,3 +74,46 @@ def test_fused_cca_decode_matches_plain(cuda, w, t, dtype):
     torch.testing.assert_close(got, want, **tol)
     with pytest.raises(ValueError):     # Mixed dtypes raise, never fall back.
         decode_kernel.fused_cca_decode(folded, x1, x2a.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,fs_in,fs_out,args', [
+    (30 * 44100, 44100.0, 32.0, dict(window=1.0, exponent=1.0)),
+    (10 * 16000, 16000.0, 100.0, dict(window=2.0, exponent=0.30103,
+                                      pre=3, post=3)),
+    (1 << 16, 16000.0, 100.0, dict(window=2.0, pre=2, post=1,
+                                   valid_len=30000, valid_out=188)),
+], ids=['ingest_30s', 'gate', 'valid_len'])
+def test_fused_envelope_lagstack_matches_plain(cuda, n, fs_in, fs_out, args):
+    audio = torch.randn((n,), device=cuda)
+    before = fused_frontend.fused_envelope_lagstack.launches
+    got = fused_frontend.fused_envelope_lagstack(audio, fs_in, fs_out, **args)
+    torch.cuda.synchronize()
+    assert fused_frontend.fused_envelope_lagstack.launches == before + 1
+    want = fused_frontend.fused_envelope_lagstack_reference(
+        audio, fs_in, fs_out, **args)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    with pytest.raises(ValueError):     # Wrong dtype raises, never falls back.
+        fused_frontend.fused_envelope_lagstack(audio.double(), fs_in, fs_out)
+
+
+@pytest.mark.cuda
+def test_compute_intensity_routes_to_kernel_and_keeps_stream_state(cuda):
+    """AudioFeatures on the card: a first whole-track call runs K3 and
+    leaves the same streaming tail as the CPU's cumsum path, so a
+    second (streaming) call, which takes the cumsum path on both
+    devices, agrees too."""
+    from telluride_decoding_torch.signal.preprocess import AudioFeatures
+    rng = np.random.RandomState(6)
+    first = rng.randn(3 * 44100, 1).astype(np.float32)
+    second = rng.randn(44100, 1).astype(np.float32)
+    card = AudioFeatures('a', 44100, 32, device=cuda)
+    cpu = AudioFeatures('a', 44100, 32, device='cpu')
+    before = fused_frontend.fused_envelope_lagstack.launches
+    np.testing.assert_allclose(card.compute_intensity(first),
+                               cpu.compute_intensity(first), atol=1e-4)
+    assert fused_frontend.fused_envelope_lagstack.launches == before + 1
+    np.testing.assert_array_equal(card._buff, cpu._buff)
+    np.testing.assert_allclose(card.compute_intensity(second),
+                               cpu.compute_intensity(second), atol=1e-6)
+    assert fused_frontend.fused_envelope_lagstack.launches == before + 1

@@ -61,14 +61,23 @@ def jax_model_dir(path, train):
     return dprime
 
 
+def port_brain_data(path, train, in2='intensity'):
+    """The port's TFExampleData over the recordings, written once as
+    TFRecords beside ``path``; ``in2`` picks the speaker paired with the
+    EEG (intensity: speaker 1, intensity2: speaker 2)."""
+    data_dir = path.rstrip(os.sep) + '_records'
+    if not os.path.isdir(data_dir):
+        chip_smoke.write_records(train, data_dir)
+    return chip_smoke.brain_data(data_dir, 'cpu', in2, 100, CONTEXTS,
+                                 train_file_pattern='trial')
+
+
 def port_model_dir(path, train):
-    """Fit (file-wise, from raw streams), train and save with the port;
-    returns its d'."""
-    pre, post, pre2, post2 = CONTEXTS
+    """Fit (file-wise, from the TFRecords), train and save with the
+    port; returns its d'."""
     model = BrainModelCCA(cca_dims=DIMS, regularization_lambda=1e-3,
                           device='cpu')
-    model.fit_streaming([(rec[0], rec[1]) for rec in train], pre=pre,
-                        post=post, pre_y=pre2, post_y=post2)
+    model.fit_streaming(port_brain_data(path, train), 'train')
     decoder = infer_decoder.CCADecoder(model, reduction='lda', device='cpu')
     dprime = decoder.train(stacked(train, 2), stacked(train, 1),
                            window_size=100)
@@ -146,9 +155,7 @@ def test_refit_invalidates_cached_pipeline(tmp_path):
     x1, x2a, _, y = _frames(train)
     before = decoder.infer_one({'input_1': x1, 'input_2': x2a}, y)
     model = decoder.decoding_model
-    pre, post, pre2, post2 = CONTEXTS
-    model.fit_streaming([(rec[0], rec[2]) for rec in train], pre=pre,
-                        post=post, pre_y=pre2, post_y=post2)
+    model.fit_streaming(port_brain_data(str(tmp_path), train, 'intensity2'))
     after = decoder.infer_one({'input_1': x1, 'input_2': x2a}, y)
     fresh = infer_decoder.CCADecoder(model, reduction='lda', device='cpu')
     fresh.model_params = decoder.model_params

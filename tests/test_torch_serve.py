@@ -113,7 +113,12 @@ def test_import_leaves_jax_out():
         '"telluride_decoding_tpu"):\n'
         '        del sys.modules[name]\n'
         'import telluride_decoding_torch.cli.serve\n'
+        'import telluride_decoding_torch.cli.regression_data\n'
+        'import telluride_decoding_torch.data.records\n'
+        'import telluride_decoding_torch.io.ingest\n'
         'import telluride_decoding_torch.models.convert\n'
+        'import telluride_decoding_torch.signal.audio_stores\n'
+        'import telluride_decoding_torch.signal.preprocess\n'
         'bad = sorted(n for n in sys.modules if n.split(".")[0] in '
         '("jax", "jaxlib", "telluride_decoding_tpu", "absl"))\n'
         'assert not bad, bad\n')
