@@ -184,6 +184,25 @@ def decode_params(torch, rng, f1, f2, dims, device):
             'lda_intercept': t(-0.25)}
 
 
+def hmma_count(library, symbol='fused_cca_decode_mma_kernel'):
+    """Tensor-core (HMMA) instructions in the SASS of the kernel whose
+    name holds ``symbol``, as cuobjdump lists them; None without
+    cuobjdump."""
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, '-sass', str(library)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, check=True).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            inside = symbol in line
+        elif inside and 'HMMA' in line:
+            count += 1
+    return count
+
+
 def phase_device(torch):
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -203,17 +222,25 @@ def phase_device(torch):
     log('phase 1 native codec: %s in %.1f s'
         % (_native.build(), time.perf_counter() - t0))
     log_lines = (kernels.BUILD_DIR / 'build.log').read_text().splitlines()
-    entry = None
+    entry, spills = None, ''
     for line in log_lines:
         if 'Compiling entry function' in line:
-            entry = line.split("'")[1]
+            entry, spills = line.split("'")[1], ''
+        elif entry and 'spill stores' in line:
+            spills = line.strip()
         elif entry and 'registers' in line and (
                 'lag_stack' in entry or 'Li10E' in entry or
-                'envelope' in entry):
-            log('phase 1 ptxas: %s: %s' % (entry, line.split(':', 1)[1]
-                                            .strip()))
+                'envelope' in entry or 'mma' in entry):
+            log('phase 1 ptxas: %s: %s; %s' % (
+                entry, line.split(':', 1)[1].strip(), spills))
             entry = None
-    return smi
+    hmma = hmma_count(path)
+    log('phase 1 SASS: %s HMMA instructions in fused_cca_decode_mma_kernel'
+        % ('cuobjdump not found, not counted' if hmma is None else hmma))
+    if hmma == 0:
+        raise AssertionError('the bf16 decode kernel has no tensor-core '
+                             'instruction')
+    return smi, hmma
 
 
 def phase_lagstack(torch, device):
@@ -252,12 +279,18 @@ def phase_lagstack(torch, device):
 
 
 def phase_decode(torch, device):
+    """K1 against its plain version: the float32 CUDA-core kernel at the
+    serving shapes (T = 1, N in {32, 4096}, single and pair), the bf16
+    tensor-core kernel at the flagship (512 windows x 100 frames x
+    2553 + 31) and at KULeuven width; times of the serving pair at N =
+    32 and of the flagship beside their bounds."""
     from telluride_decoding_torch.ops.decode_kernel import (
         fold_decode_params, fused_cca_decode, fused_cca_decode_reference)
     rng = np.random.RandomState(1)
     f1, f2 = IN1_CHANNELS * (PRE + 1 + POST), IN2_PRE + 1 + IN2_POST
     folded = fold_decode_params(decode_params(torch, rng, f1, f2, CCA_DIMS,
                                               device))
+    param_bytes = sum(p.numel() * p.element_size() for p in folded)
     gen = torch.Generator(device=device).manual_seed(1)
     worst = 0.0
     for n in (32, 4096):
@@ -278,34 +311,60 @@ def phase_decode(torch, device):
                 torch, lambda: fused_cca_decode(folded, x1, x2a, x2b),
                 lambda: (fused_cca_decode_reference(folded, x1, x2a),
                          fused_cca_decode_reference(folded, x1, x2b)))
+            serve_device = device_ms(
+                torch, lambda: fused_cca_decode(folded, x1, x2a, x2b),
+                'fused_cca_decode_kernel')
+            serve_bound = bound_ms((x1.numel() + 2 * x2a.numel()) * 4 +
+                                   param_bytes + 2 * n * 4)
+    log('phase 3 fused_cca_decode float32: matches plain at T=1 N in {32, '
+        '4096} single and pair; serving pair N=32: kernel %.4f ms, on the '
+        'device %s, plain %.4f ms, bound %.4f ms'
+        % (serve_ms, fmt_ms(serve_device), serve_plain_ms, serve_bound))
     w, t = FLAGSHIP
-    x1 = torch.randn((w, t, f1), generator=gen,
-                     device=device).to(torch.bfloat16)
-    x2 = torch.randn((w, t, f2), generator=gen,
-                     device=device).to(torch.bfloat16)
-    worst = max(worst, require_close(
-        torch, 'fused_cca_decode flagship bf16',
-        fused_cca_decode(folded, x1, x2),
-        fused_cca_decode_reference(folded, x1, x2), BF16_TOL))
+    ku_f1 = KULEUVEN['channels'] * (KULEUVEN['contexts'][0] + 1 +
+                                    KULEUVEN['contexts'][1])
+    ku = fold_decode_params(decode_params(torch, rng, ku_f1, f2,
+                                          KULEUVEN['dims'], device))
+    for name, params, width in (('KULeuven', ku, ku_f1),
+                                ('flagship', folded, f1)):
+        x1 = torch.randn((w, t, width), generator=gen,
+                         device=device).to(torch.bfloat16)
+        x2 = torch.randn((w, t, f2), generator=gen,
+                         device=device).to(torch.bfloat16)
+        x2b = torch.randn((w, t, f2), generator=gen,
+                          device=device).to(torch.bfloat16)
+        want = fused_cca_decode_reference(params, x1, x2)
+        worst = max(worst, require_close(
+            torch, 'fused_cca_decode %s bf16' % name,
+            fused_cca_decode(params, x1, x2), want, BF16_TOL))
+        worst = max(worst, require_close(
+            torch, 'fused_cca_decode %s bf16 pair' % name,
+            fused_cca_decode(params, x1, x2, x2b),
+            torch.stack([want, fused_cca_decode_reference(params, x1, x2b)]),
+            BF16_TOL))
     ms, plain_ms = interleaved_ms(
         torch, lambda: fused_cca_decode(folded, x1, x2),
         lambda: fused_cca_decode_reference(folded, x1, x2), reps=10)
+    on_device = device_ms(torch, lambda: fused_cca_decode(folded, x1, x2),
+                          'fused_cca_decode_mma_kernel')
     floor_ms = time_ms(torch, lambda: torch.sum(x1), reps=10)
     in_bytes = (x1.numel() + x2.numel()) * 2
-    param_bytes = sum(p.numel() * p.element_size() for p in folded)
     bound = bound_ms(in_bytes + param_bytes + w * 4)
-    on_device = device_ms(torch, lambda: fused_cca_decode(folded, x1, x2),
-                          'fused_cca_decode_kernel')
-    log('phase 3 fused_cca_decode: matches plain at T=1 N in {32, 4096} '
-        'single and pair (f32), and at %d x %d x %d bf16; serving pair N=32: '
-        'kernel %.4f ms, plain %.4f ms; flagship: kernel %.4f ms (%.0f GB/s), '
-        'on the device %s, plain %.4f ms, bound %.4f ms, read floor '
+    log('phase 3 fused_cca_decode bf16: matches plain at %d x %d x %d + %d '
+        '(flagship) and x %d (KULeuven), single and pair; flagship: kernel '
+        '%.4f ms (%.0f GB/s), on the device %s, plain %.4f ms, bound %.4f '
+        'ms (%.0f%% of the kernel time, %s of the device time), read floor '
         'torch.sum(x1) %.4f ms (%.0f GB/s)'
-        % (w, t, f1, serve_ms, serve_plain_ms, ms, in_bytes / ms / 1e6,
-           fmt_ms(on_device), plain_ms, bound, floor_ms,
+        % (w, t, f1, f2, ku_f1, ms, in_bytes / ms / 1e6, fmt_ms(on_device),
+           plain_ms, bound, 100 * bound / ms,
+           'not measured' if on_device is None else
+           '%.0f%%' % (100 * bound / on_device), floor_ms,
            x1.numel() * 2 / floor_ms / 1e6))
     return {'max_abs_err': worst, 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': bound}
+            'bound_ms': bound, 'device_ms': on_device,
+            'share_of_bound': bound / ms, 'read_floor_ms': floor_ms,
+            'serve_ms': serve_ms, 'serve_device_ms': serve_device,
+            'serve_plain_ms': serve_plain_ms, 'serve_bound_ms': serve_bound}
 
 
 def phase_frontend(torch, device):
@@ -833,7 +892,7 @@ def main():
     sys.path.insert(0, REPO)
     from telluride_decoding_torch.device import cuda_device
     device = cuda_device(0)
-    smi = phase_device(torch)
+    smi, hmma = phase_device(torch)
     k2 = phase_lagstack(torch, device)
     k1 = phase_decode(torch, device)
     codelab = phase_slice(torch, device, smi)
@@ -846,7 +905,8 @@ def main():
         dict(name='fused_cca_decode',
              source='telluride_decoding_torch/csrc/decode_kernel.cu',
              replaces='telluride_decoding_tpu/ops/decode_kernel.py:123',
-             launches=launches['fused_cca_decode'], **k1, **common),
+             launches=launches['fused_cca_decode'], hmma_in_sass=hmma,
+             **k1, **common),
         dict(name='lag_stack',
              source='telluride_decoding_torch/csrc/lagstack.cu',
              replaces='telluride_decoding_tpu/ops/lagstack.py:93',

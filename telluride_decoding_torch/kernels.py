@@ -110,8 +110,11 @@ def library() -> ctypes.CDLL:
                                           _INT, _INT, _VOID_P]
         lib.tdt_lag_stack_f32.restype = _INT
         lib.tdt_fused_cca_decode.argtypes = (
-            [_VOID_P] * 8 + [_INT] * 7 + [_VOID_P])
+            [_VOID_P] * 8 + [_INT] * 6 + [_VOID_P])
         lib.tdt_fused_cca_decode.restype = _INT
+        lib.tdt_fused_cca_decode_bf16.argtypes = (
+            [_VOID_P] * 8 + [_INT] * 7 + [_VOID_P])
+        lib.tdt_fused_cca_decode_bf16.restype = _INT
         lib.tdt_fused_envelope_lagstack.argtypes = (
             [_VOID_P] * 4 + [_INT] * 4 + [ctypes.c_float, _VOID_P])
         lib.tdt_fused_envelope_lagstack.restype = _INT

@@ -14,11 +14,17 @@ scores are windows of T = 1.
   * fused_cca_decode_reference: plain torch (decode_kernel.py:73-81).
   * fused_cca_decode: wrapper of kernel K1 (csrc/decode_kernel.cu), which
     replaces the Pallas kernel of the same name. It also takes a second
-    x2 stream and scores both against one read of x1.
+    x2 stream and scores both against one read of x1. bf16 windows go
+    to the tensor-core kernel, float32 ones (the serving path) to the
+    CUDA-core kernel.
+  * prepared_operands: the rotations and constants in each kernel's
+    form, kept per parameter set and dtype so a served chunk does not
+    rebuild them; pack_mma_b is the bf16 B-operand packing it uses.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple, Optional
 
 import torch
@@ -34,7 +40,19 @@ _KERNEL_WARPS = 8
 # rotations in shared memory is paid for by enough rows of x1.
 _MIN_ROWS_PER_BLOCK = 32
 _MAX_WINDOWS_PER_BLOCK = 1024
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+# The tensor-core kernel (must match namespace mma in
+# csrc/decode_kernel.cu): groups of 16 rows, two n8 tiles (D <= 16),
+# k-steps of 16 features, at most 24 k-steps a warp per chunk of the
+# feature axis, so a chunk holds at most 3072 features.
+MMA_ROWS = 16
+MMA_COLS = 16
+MMA_STEP = 16
+_MMA_MAX_CHUNK = _KERNEL_WARPS * 24 * MMA_STEP
+_MMA_PITCH_PAD = 16
+# Prepared operands kept (see prepared_operands).
+_PREPARED_SIZE = 16
+_prepared = collections.OrderedDict()
 
 
 class FoldedDecode(NamedTuple):
@@ -85,11 +103,127 @@ def fused_cca_decode_reference(folded: FoldedDecode, x1: torch.Tensor,
                       dim=1) + folded.intercept
 
 
+def pack_mma_b(rot: torch.Tensor) -> torch.Tensor:
+    """rot [F, D] as the B operand of mma.m16n8k16 (bf16, D <= 16).
+
+    rot is rounded to bf16 and zero-padded to [K, 16], K = F rounded up
+    to 16, then laid out per k-step s in fragment order: [K / 16, 32, 8],
+    where lane l = 4 g + c holds, for the n8 tiles t = 0, 1, column
+    8 t + g at rows 16 s + 4 c .. 16 s + 4 c + 3. A lane then loads its
+    four B registers of one k-step with one 16-byte load. Those rows are
+    the fragment's k = 2c, 2c + 1, 2c + 8, 2c + 9: the kernel permutes the
+    features of a step so that a lane's A elements of a row are four
+    consecutive ones, and B follows the same permutation.
+    """
+    f, d = rot.shape
+    k = -(-f // MMA_STEP) * MMA_STEP
+    padded = torch.zeros((k, MMA_COLS), dtype=torch.bfloat16,
+                         device=rot.device)
+    padded[:f, :d] = rot.to(torch.bfloat16)
+    # [step, c, i, t, g] -> [step, g, c, t, i]: lane 4 g + c, slot 4 t + i.
+    return padded.reshape(k // MMA_STEP, 4, 4, 2, 8).permute(
+        0, 4, 1, 3, 2).reshape(k // MMA_STEP, 32, 8).contiguous()
+
+
+class PreparedOperands(NamedTuple):
+    """One kernel's rotations and constants, float32 unless stated.
+
+    float32 inputs (CUDA-core kernel): rot1 [D, F1], rot2 [D, F2] and
+    consts [c1 (D), c2 (D), scale (D), intercept]. bf16 inputs
+    (tensor-core kernel): rot1 and rot2 through pack_mma_b (bf16) and
+    consts [c1, c2, scale (each padded to 16), intercept].
+    Both rotations are rounded to the inputs' dtype first, as the JAX
+    decode does (decode_kernel.py:177).
+    """
+
+    rot1: torch.Tensor
+    rot2: torch.Tensor
+    consts: torch.Tensor
+
+
+def _prepare(folded: FoldedDecode, dtype: torch.dtype) -> PreparedOperands:
+    vectors = (folded.c1, folded.c2, folded.scale)
+    if dtype == torch.float32:
+        # [D, F] so a warp's lanes read consecutive shared-memory words.
+        return PreparedOperands(
+            folded.rot1.t().contiguous(), folded.rot2.t().contiguous(),
+            torch.cat([*vectors, folded.intercept.reshape(1)]).contiguous())
+    d = folded.rot1.shape[1]
+    consts = torch.zeros(3 * MMA_COLS + 1, device=folded.rot1.device)
+    for i, v in enumerate(vectors):
+        consts[i * MMA_COLS:i * MMA_COLS + d] = v
+    consts[-1] = folded.intercept
+    return PreparedOperands(pack_mma_b(folded.rot1), pack_mma_b(folded.rot2),
+                            consts)
+
+
+def _tensor_key(t: torch.Tensor):
+    return (t.data_ptr(), t._version, tuple(t.shape), t.dtype, str(t.device))
+
+
+def prepared_operands(folded: FoldedDecode,
+                      dtype: torch.dtype) -> PreparedOperands:
+    """The kernel operands for ``folded`` and inputs of ``dtype``.
+
+    Kept in an LRU of the last few parameter sets, keyed by each folded
+    tensor's address, version counter, shape and dtype: a refit (new
+    tensors) or an in-place edit (a new version) gives a new entry. An
+    entry holds the folded tensors too, so no new tensor can take the
+    address of a cached one while the entry lives.
+    """
+    key = (dtype, *(_tensor_key(t) for t in folded))
+    hit = _prepared.get(key)
+    if hit is not None:
+        _prepared.move_to_end(key)
+        return hit[1]
+    operands = _prepare(folded, dtype)
+    _prepared[key] = (folded, operands)
+    while len(_prepared) > _PREPARED_SIZE:
+        _prepared.popitem(last=False)
+    return operands
+
+
 def _windows_per_block(device, windows: int, frames: int) -> int:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     target = -(-windows // (2 * sms))           # About two blocks per SM.
     floor = -(-_MIN_ROWS_PER_BLOCK // frames)
     return max(1, min(max(target, floor), _MAX_WINDOWS_PER_BLOCK))
+
+
+def mma_smem_bytes(chunk: int, f2: int, windows_per_block: int) -> int:
+    """Dynamic shared memory of the tensor-core kernel (layout() in
+    csrc/decode_kernel.cu): two stages of 16 x1 rows of ``chunk``
+    features and of 16 rows of each x2 stream, the warps' partial r1
+    tiles, the r2 tiles, the stages' two barriers, rot2's fragments, the
+    constants, row scores and window sums."""
+    x1_stage = MMA_ROWS * (chunk + _MMA_PITCH_PAD) * 2
+    x2_stage = (MMA_ROWS * f2 * 2 + 29) // 16 * 16
+    tile = MMA_ROWS * MMA_COLS * 4
+    return (2 * x1_stage + 4 * x2_stage + (_KERNEL_WARPS + 2) * tile + 16
+            + -(-f2 // MMA_STEP) * 32 * 16 + (3 * MMA_COLS + 1) * 4
+            + 2 * MMA_ROWS * 4 + 2 * windows_per_block * 4)
+
+
+def mma_plan(f1: int, f2: int, windows: int, sms: int):
+    """(chunk, windows_per_block, shared bytes) of the tensor-core kernel.
+
+    A block owns whole windows, ceil(W / #SMs) of them (at most 1024),
+    so about one block runs on each SM and no score crosses blocks. The
+    feature axis is walked in chunks of a multiple of 128 features (8
+    warps x k-steps of 16), as wide as F1 up to 3072 and narrowed until
+    two stages fit in shared memory.
+    """
+    wpb = max(1, min(-(-windows // sms), _MAX_WINDOWS_PER_BLOCK))
+    unit = _KERNEL_WARPS * MMA_STEP
+    chunk = min(_MMA_MAX_CHUNK, max(unit, -(-f1 // unit) * unit))
+    while mma_smem_bytes(chunk, f2, wpb) > _MAX_SMEM_BYTES and chunk > unit:
+        chunk -= unit
+    smem = mma_smem_bytes(chunk, f2, wpb)
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError('fused_cca_decode: x2 rows of %d features need %d '
+                         'bytes of shared memory, more than a block has '
+                         '(%d).' % (f2, smem, _MAX_SMEM_BYTES))
+    return chunk, wpb, smem
 
 
 def fused_cca_decode(folded: FoldedDecode, x1: torch.Tensor,
@@ -99,9 +233,9 @@ def fused_cca_decode(folded: FoldedDecode, x1: torch.Tensor,
 
     Returns [W] scores, or [2, W] (one row per x2 stream) when ``x2b``
     is given. CPU tensors take fused_cca_decode_reference. CUDA tensors
-    launch the kernel once or raise: inputs must be contiguous float32
-    or bfloat16 of one dtype, on the device of the folded parameters,
-    with D <= 16.
+    launch a kernel once or raise: inputs must be contiguous float32
+    (CUDA-core kernel) or bfloat16 (tensor-core kernel) of one dtype, on
+    the device of the folded parameters, with D <= 16.
     """
     streams = [x2] if x2b is None else [x2, x2b]
     if x1.device.type == 'cpu':
@@ -113,8 +247,7 @@ def fused_cca_decode(folded: FoldedDecode, x1: torch.Tensor,
         raise ValueError('fused_cca_decode needs every tensor on one CUDA '
                          'device, got %s.'
                          % sorted({str(t.device) for t in tensors}))
-    if x1.dtype not in _DTYPE_CODES or any(s.dtype != x1.dtype
-                                           for s in streams):
+    if x1.dtype not in _DTYPES or any(s.dtype != x1.dtype for s in streams):
         raise ValueError('fused_cca_decode takes float32 or bfloat16 x1 '
                          'and x2 of one dtype, got %s.'
                          % [str(t.dtype) for t in (x1, *streams)])
@@ -142,28 +275,32 @@ def fused_cca_decode(folded: FoldedDecode, x1: torch.Tensor,
                       device=x1.device)
     if windows == 0:
         return out[0] if x2b is None else out
-    wpb = _windows_per_block(x1.device, windows, frames)
-    smem = 4 * (3 * d + 1 + d * (f1 + f2) + 2 * _KERNEL_WARPS * wpb)
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError('fused_cca_decode: rotations of %d x %d and %d x '
-                         '%d need %d bytes of shared memory, more than a '
-                         'block has (%d).'
-                         % (f1, d, f2, d, smem, _MAX_SMEM_BYTES))
-    # Rotations rounded to x's dtype (JAX casts them at
-    # decode_kernel.py:177), widened back to float32 and transposed to
-    # [D, F] so a warp's lanes read consecutive shared-memory words.
-    rot1_t = folded.rot1.to(x1.dtype).float().t().contiguous()
-    rot2_t = folded.rot2.to(x1.dtype).float().t().contiguous()
-    consts = torch.cat([folded.c1, folded.c2, folded.scale,
-                        folded.intercept.reshape(1)]).contiguous()
+    if x1.dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(
+            x1.device).multi_processor_count
+        chunk, wpb, _ = mma_plan(f1, f2, windows, sms)
+    else:
+        wpb = _windows_per_block(x1.device, windows, frames)
+        smem = 4 * (3 * d + 1 + d * (f1 + f2) + 2 * _KERNEL_WARPS * wpb)
+        if smem > _MAX_SMEM_BYTES:
+            raise ValueError('fused_cca_decode: rotations of %d x %d and %d '
+                             'x %d need %d bytes of shared memory, more than '
+                             'a block has (%d).'
+                             % (f1, d, f2, d, smem, _MAX_SMEM_BYTES))
+    operands = prepared_operands(folded, x1.dtype)
     lib = kernels.library()
-    kernels.check(lib.tdt_fused_cca_decode(
-        x1.data_ptr(), x2.data_ptr(),
-        None if x2b is None else x2b.data_ptr(),
-        rot1_t.data_ptr(), rot2_t.data_ptr(), consts.data_ptr(),
-        out[0].data_ptr(), None if x2b is None else out[1].data_ptr(),
-        windows, frames, f1, f2, d, _DTYPE_CODES[x1.dtype], wpb,
-        kernels.stream_handle(x1.device)), 'fused_cca_decode')
+    pointers = (x1.data_ptr(), x2.data_ptr(),
+                None if x2b is None else x2b.data_ptr(),
+                *(t.data_ptr() for t in operands),
+                out[0].data_ptr(), None if x2b is None else out[1].data_ptr())
+    stream = kernels.stream_handle(x1.device)
+    if x1.dtype == torch.bfloat16:
+        code = lib.tdt_fused_cca_decode_bf16(
+            *pointers, windows, frames, f1, f2, d, chunk, wpb, stream)
+    else:
+        code = lib.tdt_fused_cca_decode(*pointers, windows, frames, f1, f2,
+                                        d, wpb, stream)
+    kernels.check(code, 'fused_cca_decode')
     fused_cca_decode.launches += 1
     return out[0] if x2b is None else out
 

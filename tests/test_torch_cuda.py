@@ -9,7 +9,8 @@ so it also runs on a machine without JAX:
 Tolerances: the lag stack is a copy, so bit-exact. The decode: float32
 rtol 1e-4 / atol 1e-4 (sums in another order, the JAX suite's bound);
 bf16 rtol 1e-3 / atol 1e-3, since both sides read the same bf16 data and
-rotations and accumulate in float32. The audio envelope: atol 1e-4, the
+rotations and accumulate in float32 (the tensor cores' products of two
+bf16 values are exact in float32; only the order of the sums differs). The audio envelope: atol 1e-4, the
 JAX suite's bound for its kernel (float32 window sums in another order).
 """
 
@@ -41,17 +42,10 @@ def test_lag_stack_bit_exact(cuda, n, c, pre, post):
     assert torch.equal(got, lagstack.lag_stack_reference(x, pre, post))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('w,t,dtype', [(32, 1, torch.float32),
-                                       (7, 13, torch.float32),
-                                       (512, 100, torch.bfloat16)])
-def test_fused_cca_decode_matches_plain(cuda, w, t, dtype):
-    rng = np.random.RandomState(0)
-    d, f1, f2 = 10, 2553, 31
-
+def _folded(cuda, rng, f1, f2, d):
     def tensor(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=cuda)
-    folded = decode_kernel.fold_decode_params({
+    return decode_kernel.fold_decode_params({
         'mean1': tensor(rng.randn(1, f1)), 'mean2': tensor(rng.randn(1, f2)),
         'rot1': tensor(rng.randn(f1, d) * 0.02),
         'rot2': tensor(rng.randn(f2, d) * 0.2),
@@ -60,6 +54,19 @@ def test_fused_cca_decode_matches_plain(cuda, w, t, dtype):
         'corr_power': tensor(1.0 + rng.rand(d)),
         'lda_w': tensor(rng.randn(d, 2)), 'lda_slope': tensor(1.3),
         'lda_intercept': tensor(-0.25)})
+
+
+BF16_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('w,t,dtype', [(32, 1, torch.float32),
+                                       (7, 13, torch.float32),
+                                       (512, 100, torch.bfloat16)])
+def test_fused_cca_decode_matches_plain(cuda, w, t, dtype):
+    rng = np.random.RandomState(0)
+    d, f1, f2 = 10, 2553, 31
+    folded = _folded(cuda, rng, f1, f2, d)
     x1 = torch.randn((w, t, f1), device=cuda).to(dtype)
     x2a = torch.randn((w, t, f2), device=cuda).to(dtype)
     x2b = torch.randn((w, t, f2), device=cuda).to(dtype)
@@ -70,10 +77,87 @@ def test_fused_cca_decode_matches_plain(cuda, w, t, dtype):
         decode_kernel.fused_cca_decode_reference(folded, x1, x2a),
         decode_kernel.fused_cca_decode_reference(folded, x1, x2b)])
     tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else
-           dict(rtol=1e-3, atol=1e-3))
+           BF16_TOL)
     torch.testing.assert_close(got, want, **tol)
     with pytest.raises(ValueError):     # Mixed dtypes raise, never fall back.
         decode_kernel.fused_cca_decode(folded, x1, x2a.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('f1,f2', [(2553, 31), (2553, 5), (1408, 31),
+                                   (1408, 5), (17, 31), (17, 5)])
+@pytest.mark.parametrize('d', [1, 8, 10, 16])
+@pytest.mark.parametrize('w,t', [(512, 100), (7, 13), (3, 100), (1, 1)])
+def test_fused_cca_decode_bf16_matches_plain(cuda, w, t, d, f1, f2):
+    """The tensor-core kernel, single and pair form, against the plain
+    version on the same bf16 inputs."""
+    rng = np.random.RandomState(1000 * d + f2)
+    folded = _folded(cuda, rng, f1, f2, d)
+    gen = torch.Generator(device=cuda).manual_seed(w * t + f1)
+
+    def window(f):
+        return torch.randn((w, t, f), generator=gen, device=cuda).to(
+            torch.bfloat16)
+    x1, x2a, x2b = window(f1), window(f2), window(f2)
+    before = decode_kernel.fused_cca_decode.launches
+    single = decode_kernel.fused_cca_decode(folded, x1, x2a)
+    pair = decode_kernel.fused_cca_decode(folded, x1, x2a, x2b)
+    assert decode_kernel.fused_cca_decode.launches == before + 2
+    want_a = decode_kernel.fused_cca_decode_reference(folded, x1, x2a)
+    want_b = decode_kernel.fused_cca_decode_reference(folded, x1, x2b)
+    torch.testing.assert_close(single, want_a, **BF16_TOL)
+    torch.testing.assert_close(pair, torch.stack([want_a, want_b]),
+                               **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('f1,f2', [(5000, 31), (2553, 500)])
+def test_fused_cca_decode_bf16_chunked_rows(cuda, f1, f2):
+    """Rows wider than a chunk of the feature axis (5000 features; 2553
+    when 500 x2 features narrow the chunk) are multiplied chunk by
+    chunk, the B fragments reloaded for each."""
+    rng = np.random.RandomState(3)
+    folded = _folded(cuda, rng, f1, f2, 10)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunk, _, _ = decode_kernel.mma_plan(f1, f2, 300, sms)
+    assert chunk < f1
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x1, x2a, x2b = (torch.randn((300, 13, f), generator=gen,
+                                device=cuda).to(torch.bfloat16)
+                    for f in (f1, f2, f2))
+    got = decode_kernel.fused_cca_decode(folded, x1, x2a, x2b)
+    want = torch.stack([
+        decode_kernel.fused_cca_decode_reference(folded, x1, x2a),
+        decode_kernel.fused_cca_decode_reference(folded, x1, x2b)])
+    torch.testing.assert_close(got, want, **BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_fused_cca_decode_bf16_contains_non_finite_frames(cuda):
+    """An inf in the first feature of a window's first frame, which the
+    previous window's last frame reads past its end in its last k-step,
+    and a nan in the last feature of another frame: only their windows
+    change. 300 windows of 13 frames put 3 windows in a block, so rows
+    of different windows share a 16-row group."""
+    rng = np.random.RandomState(2)
+    f1, f2 = 2553, 31
+    folded = _folded(cuda, rng, f1, f2, 10)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x1 = torch.randn((300, 13, f1), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    x2a, x2b = (torch.randn((300, 13, f2), generator=gen, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    x1[100, 0, 0] = float('inf')
+    x1[200, 5, f1 - 1] = float('nan')
+    got = decode_kernel.fused_cca_decode(folded, x1, x2a, x2b)
+    want = torch.stack([
+        decode_kernel.fused_cca_decode_reference(folded, x1, x2a),
+        decode_kernel.fused_cca_decode_reference(folded, x1, x2b)])
+    keep = torch.ones(300, dtype=torch.bool, device=cuda)
+    keep[[100, 200]] = False
+    assert torch.isfinite(got[:, keep]).all()
+    assert not torch.isfinite(got[:, ~keep]).any()
+    torch.testing.assert_close(got[:, keep], want[:, keep], **BF16_TOL)
 
 
 @pytest.mark.cuda

@@ -102,3 +102,81 @@ def test_wrapper_rejects_non_cuda_devices(rng):
         decode_kernel.fused_cca_decode(folded, x1, x2)
     assert decode_kernel.fused_cca_decode.launches == 0
 
+
+
+def _unpack_mma_b(packed):
+    """[K / 16, 32, 8] fragments back to [K, 16]. mma.m16n8k16's B
+    operand puts column g (tile 0) and 8 + g (tile 1) of the fragment's
+    rows 2c, 2c + 1, 2c + 8, 2c + 9 in lane 4 g + c; the kernel feeds
+    features 4c .. 4c + 3 of the k-step to those rows."""
+    packed = packed.float().numpy()
+    out = np.full((packed.shape[0] * 16, 16), np.nan, np.float32)
+    for s in range(packed.shape[0]):
+        for lane in range(32):
+            g, c = divmod(lane, 4)
+            for t in range(2):
+                for i in range(4):
+                    out[16 * s + 4 * c + i, 8 * t + g] = \
+                        packed[s, lane, 4 * t + i]
+    return out
+
+
+@pytest.mark.parametrize('f,d', [(2553, 10), (1408, 5), (17, 16), (5, 1)])
+def test_pack_mma_b_is_padded_bf16_rotation(rng, f, d):
+    rot = torch.from_numpy((rng.randn(f, d) * 0.02).astype(np.float32))
+    packed = decode_kernel.pack_mma_b(rot)
+    k = -(-f // 16) * 16
+    assert packed.dtype == torch.bfloat16
+    assert tuple(packed.shape) == (k // 16, 32, 8)
+    want = np.zeros((k, 16), np.float32)
+    want[:f, :d] = rot.to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(_unpack_mma_b(packed), want)
+
+
+def test_prepared_operands_are_kept_per_parameter_set(rng):
+    folded = _folded(_params(rng))
+    for dtype in (torch.bfloat16, torch.float32):
+        first = decode_kernel.prepared_operands(folded, dtype)
+        assert decode_kernel.prepared_operands(folded, dtype) is first
+    bf16 = decode_kernel.prepared_operands(folded, torch.bfloat16)
+    f32 = decode_kernel.prepared_operands(folded, torch.float32)
+    assert bf16 is not f32
+    # float32: rotations transposed, constants c1, c2, scale, intercept.
+    torch.testing.assert_close(f32.rot1, folded.rot1.t(), rtol=0, atol=0)
+    assert f32.consts.shape == (3 * 10 + 1,)
+    # bf16: both rotations as B fragments, constants padded to 16.
+    for got, rot in ((bf16.rot1, folded.rot1), (bf16.rot2, folded.rot2)):
+        torch.testing.assert_close(got, decode_kernel.pack_mma_b(rot),
+                                   rtol=0, atol=0)
+    assert bf16.consts.shape == (3 * 16 + 1,)
+    assert not bf16.consts[26:32].any()
+    torch.testing.assert_close(bf16.consts[16:26], folded.c2, rtol=0,
+                               atol=0)
+    assert float(bf16.consts[-1]) == float(folded.intercept)
+    # A refit (new tensors) and an in-place edit both give new operands.
+    refit = _folded(_params(rng))
+    assert decode_kernel.prepared_operands(refit, torch.bfloat16) is not bf16
+    folded.rot1.mul_(2.0)
+    edited = decode_kernel.prepared_operands(folded, torch.bfloat16)
+    assert edited is not bf16
+    torch.testing.assert_close(
+        edited.rot1, decode_kernel.pack_mma_b(folded.rot1), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('f1,f2,windows,chunk,wpb', [
+    (2553, 31, 512, 2560, 4),      # The flagship: one chunk, 128 blocks.
+    (1408, 31, 228, 1408, 2),      # KULeuven width: 11 x 128.
+    (17, 5, 1, 128, 1),
+    (10000, 31, 7, 3072, 1),       # Wider than a chunk: 4 chunks.
+    (2553, 500, 3, 2176, 1),       # Wide x2 rows narrow the chunk.
+])
+def test_mma_plan_fits_shared_memory(f1, f2, windows, chunk, wpb):
+    got_chunk, got_wpb, smem = decode_kernel.mma_plan(f1, f2, windows, 132)
+    assert (got_chunk, got_wpb) == (chunk, wpb)
+    assert smem == decode_kernel.mma_smem_bytes(chunk, f2, wpb) <= 232448
+    assert -(-windows // wpb) <= 132
+
+
+def test_mma_plan_raises_when_x2_rows_cannot_fit():
+    with pytest.raises(ValueError):
+        decode_kernel.mma_plan(2553, 4000, 512, 132)
