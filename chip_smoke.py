@@ -60,6 +60,9 @@ SERVE_TOL = 1e-4
 INGEST_TOL = 1e-4
 SOSFILT_TOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, data sheet.
+FP32_FLOPS = 67e12                             # fp32 on the CUDA cores, same.
+SERVE_ROWS = 32                                # Frames in a served chunk.
+F32_SYMBOL = 'fused_cca_decode_cluster_kernel'  # K1's float32 kernel.
 REPO = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(REPO, 'build')
 
@@ -158,6 +161,15 @@ def bound_ms(num_bytes):
     return num_bytes / HBM_BYTES_PER_S * 1e3
 
 
+def bound(num_bytes, fp32_flops):
+    """(ms, 'bytes' or 'operations'): the larger of the bytes at the
+    card's memory rate and the fp32 operations at its CUDA-core rate."""
+    ops_ms = fp32_flops / FP32_FLOPS * 1e3
+    bytes_ms = bound_ms(num_bytes)
+    return (bytes_ms, 'bytes') if bytes_ms >= ops_ms else (ops_ms,
+                                                          'operations')
+
+
 def max_err(torch, got, want):
     return float(torch.max(torch.abs(got.float() - want.float())))
 
@@ -229,7 +241,7 @@ def phase_device(torch):
         elif entry and 'spill stores' in line:
             spills = line.strip()
         elif entry and 'registers' in line and (
-                'lag_stack' in entry or 'Li10E' in entry or
+                'lag_stack' in entry or F32_SYMBOL in entry or
                 'envelope' in entry or 'mma' in entry):
             log('phase 1 ptxas: %s: %s; %s' % (
                 entry, line.split(':', 1)[1].strip(), spills))
@@ -266,60 +278,117 @@ def phase_lagstack(torch, device):
         torch, lambda: lag_stack(x, PRE, POST),
         lambda: lag_stack_reference(x, PRE, POST))
     out_bytes = TRAIN_FRAMES * IN1_CHANNELS * (PRE + 1 + POST) * 4
-    bound = bound_ms(x.numel() * 4 + out_bytes)
+    limit = bound_ms(x.numel() * 4 + out_bytes)
     on_device = device_ms(torch, lambda: lag_stack(x, PRE, POST),
                           'lag_stack_kernel')
     log('phase 2 lag_stack: bit-exact at 5 shapes; [%d, %d] pre %d post %d: '
         'kernel %.4f ms (%.0f GB/s written), on the device %s, plain %.4f '
         'ms, bound %.4f ms'
         % (TRAIN_FRAMES, IN1_CHANNELS, PRE, POST, ms, out_bytes / ms / 1e6,
-           fmt_ms(on_device), plain_ms, bound))
+           fmt_ms(on_device), plain_ms, limit))
     return {'max_abs_err': worst, 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': bound}
+            'bound_ms': limit, 'bound_by': 'bytes'}
+
+
+def host_ms(torch, fn, reps=200):
+    """Mean host milliseconds per call of ``fn`` over ``reps`` calls
+    with no synchronisation between them: what the caller's thread
+    spends to enqueue one call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def phase_decode_f32(torch, device, symbol=F32_SYMBOL):
+    """K1's float32 kernel (the serving decode) against its plain version
+    at the serving shapes, T = 1 and N in {11, 28, 32} frames a chunk
+    (single and pair form) at codelab (2553 + 31, D 10) and KULeuven
+    (1408 + 31, D 5) width, and at N = 4096. For the serving pair at N =
+    32 at both widths and the pair at N = 4096 (codelab width): the
+    call's time (CUDA events over back-to-back calls), its host time,
+    the kernel's device time (torch.profiler, kernels whose name holds
+    ``symbol``), the plain version's time, the bound (bytes or
+    operations), and the read floor: one torch.sum of the same x1 (call
+    and device time)."""
+    from telluride_decoding_torch.ops.decode_kernel import (
+        fold_decode_params, fused_cca_decode, fused_cca_decode_reference)
+    rng = np.random.RandomState(1)
+    gen = torch.Generator(device=device).manual_seed(1)
+    f2 = IN2_PRE + 1 + IN2_POST
+    widths = (('codelab', IN1_CHANNELS * (PRE + 1 + POST), CCA_DIMS),
+              ('KULeuven', KULEUVEN['channels'] * (KULEUVEN['contexts'][0] +
+                                                   1 + KULEUVEN['contexts'][1]),
+               KULEUVEN['dims']))
+    worst, timed = 0.0, {}
+    for name, f1, dims in widths:
+        folded = fold_decode_params(decode_params(torch, rng, f1, f2, dims,
+                                                  device))
+        param_bytes = sum(p.numel() * p.element_size() for p in folded)
+        for n in (11, 28, SERVE_ROWS, 4096):
+            x1, x2a, x2b = (torch.randn((n, 1, f), generator=gen,
+                                        device=device) for f in (f1, f2, f2))
+            want_a = fused_cca_decode_reference(folded, x1, x2a)
+            want_b = fused_cca_decode_reference(folded, x1, x2b)
+            worst = max(worst, require_close(
+                torch, 'fused_cca_decode %s T=1 N=%d' % (name, n),
+                fused_cca_decode(folded, x1, x2a), want_a, F32_TOL))
+            worst = max(worst, require_close(
+                torch, 'fused_cca_decode %s pair N=%d' % (name, n),
+                fused_cca_decode(folded, x1, x2a, x2b),
+                torch.stack([want_a, want_b]), F32_TOL))
+            if n != SERVE_ROWS and not (n == 4096 and name == 'codelab'):
+                continue
+
+            def call():
+                return fused_cca_decode(folded, x1, x2a, x2b)
+            ms, plain_ms = interleaved_ms(
+                torch, call,
+                lambda: (fused_cca_decode_reference(folded, x1, x2a),
+                         fused_cca_decode_reference(folded, x1, x2b)))
+            # r1, r2 of both streams and the two scores, as multiply-adds.
+            flops = 2 * n * dims * (f1 + 2 * f2 + 4)
+            limit, limited_by = bound(
+                (x1.numel() + 2 * x2a.numel()) * 4 + param_bytes + 2 * n * 4,
+                flops)
+            timed['%s_%d' % (name, n)] = dict(
+                ms=ms, plain_ms=plain_ms, host_ms=host_ms(torch, call),
+                device_ms=device_ms(torch, call, symbol),
+                read_floor_ms=time_ms(torch, lambda: torch.sum(x1)),
+                read_floor_device_ms=device_ms(
+                    torch, lambda: torch.sum(x1), 'reduce_kernel'),
+                bound_ms=limit, bound_by=limited_by)
+    for key, t in timed.items():
+        log('phase 3 fused_cca_decode float32 pair %s: call %.4f ms, host '
+            '%.4f ms, on the device %s, plain %.4f ms, bound %.4f ms (%s), '
+            'read floor torch.sum(x1) %.4f ms (on the device %s)'
+            % (key, t['ms'], t['host_ms'], fmt_ms(t['device_ms']),
+               t['plain_ms'], t['bound_ms'], t['bound_by'],
+               t['read_floor_ms'], fmt_ms(t['read_floor_device_ms'])))
+    log('phase 3 fused_cca_decode float32: matches plain within %s at T=1 N '
+        'in {11, 28, 32, 4096}, single and pair, at 2553 + 31 (D 10) and '
+        '1408 + 31 (D 5); max abs err %.3g' % (F32_TOL, worst))
+    return worst, timed
 
 
 def phase_decode(torch, device):
-    """K1 against its plain version: the float32 CUDA-core kernel at the
-    serving shapes (T = 1, N in {32, 4096}, single and pair), the bf16
-    tensor-core kernel at the flagship (512 windows x 100 frames x
-    2553 + 31) and at KULeuven width; times of the serving pair at N =
-    32 and of the flagship beside their bounds."""
+    """K1 against its plain version: the float32 kernel at the serving
+    shapes (phase_decode_f32), the bf16 tensor-core kernel at the
+    flagship (512 windows x 100 frames x 2553 + 31) and at KULeuven
+    width, timed at the flagship beside its bound."""
     from telluride_decoding_torch.ops.decode_kernel import (
         fold_decode_params, fused_cca_decode, fused_cca_decode_reference)
+    worst, f32 = phase_decode_f32(torch, device)
     rng = np.random.RandomState(1)
     f1, f2 = IN1_CHANNELS * (PRE + 1 + POST), IN2_PRE + 1 + IN2_POST
     folded = fold_decode_params(decode_params(torch, rng, f1, f2, CCA_DIMS,
                                               device))
     param_bytes = sum(p.numel() * p.element_size() for p in folded)
     gen = torch.Generator(device=device).manual_seed(1)
-    worst = 0.0
-    for n in (32, 4096):
-        x1 = torch.randn((n, 1, f1), generator=gen, device=device)
-        x2a = torch.randn((n, 1, f2), generator=gen, device=device)
-        x2b = torch.randn((n, 1, f2), generator=gen, device=device)
-        want_a = fused_cca_decode_reference(folded, x1, x2a)
-        want_b = fused_cca_decode_reference(folded, x1, x2b)
-        worst = max(worst, require_close(
-            torch, 'fused_cca_decode T=1 N=%d' % n,
-            fused_cca_decode(folded, x1, x2a), want_a, F32_TOL))
-        pair = fused_cca_decode(folded, x1, x2a, x2b)
-        worst = max(worst, require_close(
-            torch, 'fused_cca_decode pair N=%d' % n, pair,
-            torch.stack([want_a, want_b]), F32_TOL))
-        if n == 32:
-            serve_ms, serve_plain_ms = interleaved_ms(
-                torch, lambda: fused_cca_decode(folded, x1, x2a, x2b),
-                lambda: (fused_cca_decode_reference(folded, x1, x2a),
-                         fused_cca_decode_reference(folded, x1, x2b)))
-            serve_device = device_ms(
-                torch, lambda: fused_cca_decode(folded, x1, x2a, x2b),
-                'fused_cca_decode_kernel')
-            serve_bound = bound_ms((x1.numel() + 2 * x2a.numel()) * 4 +
-                                   param_bytes + 2 * n * 4)
-    log('phase 3 fused_cca_decode float32: matches plain at T=1 N in {32, '
-        '4096} single and pair; serving pair N=32: kernel %.4f ms, on the '
-        'device %s, plain %.4f ms, bound %.4f ms'
-        % (serve_ms, fmt_ms(serve_device), serve_plain_ms, serve_bound))
     w, t = FLAGSHIP
     ku_f1 = KULEUVEN['channels'] * (KULEUVEN['contexts'][0] + 1 +
                                     KULEUVEN['contexts'][1])
@@ -349,22 +418,27 @@ def phase_decode(torch, device):
                           'fused_cca_decode_mma_kernel')
     floor_ms = time_ms(torch, lambda: torch.sum(x1), reps=10)
     in_bytes = (x1.numel() + x2.numel()) * 2
-    bound = bound_ms(in_bytes + param_bytes + w * 4)
+    limit = bound_ms(in_bytes + param_bytes + w * 4)
     log('phase 3 fused_cca_decode bf16: matches plain at %d x %d x %d + %d '
         '(flagship) and x %d (KULeuven), single and pair; flagship: kernel '
         '%.4f ms (%.0f GB/s), on the device %s, plain %.4f ms, bound %.4f '
         'ms (%.0f%% of the kernel time, %s of the device time), read floor '
         'torch.sum(x1) %.4f ms (%.0f GB/s)'
         % (w, t, f1, f2, ku_f1, ms, in_bytes / ms / 1e6, fmt_ms(on_device),
-           plain_ms, bound, 100 * bound / ms,
+           plain_ms, limit, 100 * limit / ms,
            'not measured' if on_device is None else
-           '%.0f%%' % (100 * bound / on_device), floor_ms,
+           '%.0f%%' % (100 * limit / on_device), floor_ms,
            x1.numel() * 2 / floor_ms / 1e6))
-    return {'max_abs_err': worst, 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': bound, 'device_ms': on_device,
-            'share_of_bound': bound / ms, 'read_floor_ms': floor_ms,
-            'serve_ms': serve_ms, 'serve_device_ms': serve_device,
-            'serve_plain_ms': serve_plain_ms, 'serve_bound_ms': serve_bound}
+    # The entry's own numbers are the main paths' call, the float32
+    # serving pair at codelab width; the rest under their shapes' names.
+    serve = f32['codelab_%d' % SERVE_ROWS]
+    result = dict(serve, max_abs_err=worst,
+                  bf16_flagship={'ms': ms, 'plain_ms': plain_ms,
+                                 'bound_ms': limit, 'device_ms': on_device,
+                                 'read_floor_ms': floor_ms})
+    result.update({'f32_' + key: t for key, t in f32.items()
+                   if key != 'codelab_%d' % SERVE_ROWS})
+    return result
 
 
 def phase_frontend(torch, device):
@@ -401,16 +475,17 @@ def phase_frontend(torch, device):
             K3_TOL))
         ms, plain_ms = interleaved_ms(torch, kernel, plain, reps=10)
         num_bytes = args.get('valid_len', n) * 4 + got.numel() * 4
-        bound = bound_ms(num_bytes)
+        limit = bound_ms(num_bytes)
         on_device = device_ms(torch, kernel, 'envelope_lagstack_kernel')
         log('phase 5 fused_envelope_lagstack %s: [%d] %g -> %g Hz %s -> %s;'
             ' kernel %.4f ms (%.0f GB/s), on the device %s, plain %.4f ms, '
             '%.1f MB moved, bound %.4f ms (%.0f%% of the kernel time)'
             % (name, n, fs_in, fs_out, args, tuple(got.shape), ms,
                num_bytes / ms / 1e6, fmt_ms(on_device), plain_ms,
-               num_bytes / 1e6, bound, 100 * bound / ms))
+               num_bytes / 1e6, limit, 100 * limit / ms))
         if name == 'ingest':
-            result = {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound}
+            result = {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': limit,
+                      'bound_by': 'bytes'}
     result['max_abs_err'] = worst
     return result
 
@@ -900,7 +975,7 @@ def main():
     phase_sosfilt(torch, device)
     kuleuven = phase_ingest_slice(torch, device, smi, k3['ms'])
     launches = {name: codelab[name] + kuleuven[name] for name in kuleuven}
-    common = dict(route='cuda', bound_by='bytes', library_ms=None)
+    common = dict(route='cuda', library_ms=None)
     kernels = [
         dict(name='fused_cca_decode',
              source='telluride_decoding_torch/csrc/decode_kernel.cu',

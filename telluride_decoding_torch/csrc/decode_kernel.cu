@@ -58,187 +58,403 @@
 // are walked chunk by chunk, the B fragments reloaded from device memory
 // for each; at 2553 and 1408 features a row is one chunk.
 //
-// float32 (fused_cca_decode_kernel), the per-chunk serving shape (T = 1,
-// 32 frames a chunk). Each block stages rot1 and rot2, transposed to
-// [D, F] fp32, in dynamic shared memory once (102 KB at F1 = 2553, D = 10),
-// then walks a contiguous range of windows; a warp takes kRows consecutive
-// rows (frames) at a time, its lanes stride F with coalesced loads, and
-// each lane keeps kRows x D fp32 partial dot products in registers, so one
-// shared-memory read of rot[d, f] feeds kRows fused multiply-adds; a
-// butterfly warp reduction finishes them, lane 0 scores the rows and adds
-// each score to its window's per-warp partial sum in shared memory, summed
-// in a fixed order after a barrier. D is a template parameter (1..16) so
-// the accumulators stay in registers. At the serving shape its time is
-// launch latency and the host's work around the call (PERF.md).
+// float32 (fused_cca_decode_cluster_kernel): the serving decode, windows of
+// T = 1 in chunks of up to 32 frames, pair form, at 2553 (D 10) and 1408
+// (D 5) features, and every other float32 call. The products are exact
+// fp32 FMAs on the CUDA cores (served scores stay within 1e-4 of the plain
+// decode; TF32 would not). A served chunk's bytes (0.44 MB at 2553) take
+// 0.13 us at 3.35 TB/s, so latency bounds it: the launch, one round trip
+// of x1 from device memory and the chain of work after it, which one block
+// on one SM used to serialise. Design:
+//   * a cluster of C blocks owns a tile of whole windows: as many as fit in
+//     32 rows, or one longer window whose rows are walked 32 at a time.
+//     Block k takes a contiguous slice of about F1 / C features of each
+//     row, so a served chunk spreads over C = 16 SMs; with many tiles C
+//     falls so that the tiles just fill the card (ops/decode_kernel.py::
+//     f32_plan);
+//   * the block stages its slice of the group's rows and of rot1 (D padded
+//     to 16 columns) a chunk of features at a time with 4- and 16-byte
+//     cp.async copies from all threads, so every load is in flight at once
+//     and, in two stages, chunk c + 1 is copied while chunk c is multiplied;
+//   * warp w multiplies rows w, w + 8, w + 16, w + 24 by all 16 columns,
+//     its lanes on consecutive features: 4 words of x1 and 4 float4s of
+//     rot1 feed 64 FMAs, and rot1's row quarters are rotated in shared
+//     memory so the float4 loads are free of bank conflicts. A butterfly
+//     reduce-scatter over the lanes leaves each lane two sums;
+//   * each row is scored by the block whose rank is its window modulo C:
+//     every block sends its partial r1 of the row there (a store into that
+//     block's shared memory through cluster.map_shared_rank), and after
+//     one cluster barrier a group the owner adds the C partials in rank
+//     order, scores the row against both x2 streams (r2 from the x2 rows it
+//     staged, computed while the barrier is pending), sums the columns with
+//     a butterfly and the rows into their window's mean in row order. No
+//     float atomics, no global scratch, one launch: the result does not
+//     depend on scheduling. Partials alternate between two buffers, and
+//     nothing remote is touched after the last barrier, so no block waits
+//     for the others to exit.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+namespace cg = cooperative_groups;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 4;
+namespace f32 {
 
-// Projects rows row0 .. row0 + kRows - 1 of x [*, f] onto rot_t [D, f]
-// (shared memory). Rows at or past last_row re-read last_row, so every
-// load stays in bounds; the caller ignores their results. On return every
-// lane holds the full sums.
-template <int D>
-__device__ __forceinline__ void project_rows(const float* __restrict__ x,
-                                             long long row0,
-                                             long long last_row, int f,
-                                             const float* rot_t, int lane,
-                                             float (&acc)[kRows][D]) {
-  const float* rows[kRows];
+// Must match the F32_* constants, f32_plan and f32_smem_bytes in
+// ops/decode_kernel.py.
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kGroup = 32;               // Rows (frames) a group.
+constexpr int kRows = kGroup / kWarps;   // A warp's rows: warp + 8 i.
+constexpr int kCols = 16;                // D <= 16, zero-padded.
+constexpr int kMaxCluster = 16;
+constexpr size_t kMaxSmem = 232448;
+
+struct Layout {
+  int pitch;  // fp32 words a staged x1 row.
+  size_t rot, recv, r2, x2, rot2, consts, scores, rows, win, total;
+};
+
+// Shared memory, in this order: x1 rows [stage][kGroup][pitch]; rot1
+// [stage][chunk][kCols]; the partial r1 sent here [2][kGroup][cluster]
+// [kCols]; r2 [kGroup][stream][kCols]; x2 rows [stream][kGroup][f2]; rot2
+// [f2][kCols]; c1, c2, scale and the intercept; row scores [kGroup]
+// [stream]; the owned rows' indices [kGroup]; window sums [stream]
+// [windows_per_tile].
+__host__ __device__ inline Layout layout(int chunk, int f2, int cluster,
+                                         int windows_per_tile) {
+  Layout l;
+  l.pitch = (chunk + 3) / 4 * 4;
+  const size_t group = kGroup;
+  l.rot = 2 * group * l.pitch * 4;
+  l.recv = l.rot + 2 * static_cast<size_t>(chunk) * kCols * 4;
+  l.r2 = l.recv + 2 * group * cluster * kCols * 4;
+  l.x2 = l.r2 + group * 2 * kCols * 4;
+  l.rot2 = l.x2 + 2 * group * f2 * 4;
+  l.consts = l.rot2 + static_cast<size_t>(f2) * kCols * 4;
+  l.scores = l.consts + ((3 * kCols + 1) * 4 + 15) / 16 * 16;
+  l.rows = l.scores + 2 * group * 4;
+  l.win = l.rows + group * 4;
+  l.total = l.win + 2 * static_cast<size_t>(windows_per_tile) * 4;
+  return l;
+}
+
+// The two halves of a cluster barrier: arrive (releasing this thread's
+// writes to the cluster's shared memory, or relaxed) and wait (acquiring
+// the others').
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Asynchronous copies into shared memory (cp.async): a 4-byte word at any
+// word address, 16 bytes between 16-byte aligned addresses. A group of
+// them is closed by copy_commit; copy_wait<n> waits until at most n of
+// this thread's groups are in flight.
+__device__ __forceinline__ void copy_word(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Where feature k's columns 4 q .. 4 q + 3 sit in a staged chunk of rot1:
+// the four 16-byte quarters of a row rotate by k / 2, so the 8 lanes of a
+// quarter-warp, on 8 consecutive features, read 8 different bank quads.
+__device__ __forceinline__ int rot_word(int k, int q) {
+  return k * kCols + 4 * ((q + (k >> 1)) & 3);
+}
+
+// One step of a warp's reduce-scatter: lanes that differ in bit `offset`
+// swap halves of their 2H live values and add, so each keeps H sums.
+template <int H>
+__device__ __forceinline__ void fold(float (&v)[kRows * kCols], int lane,
+                                     int offset) {
+  const bool upper = lane & offset;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const long long row = row0 + r < last_row ? row0 + r : last_row;
-    rows[r] = x + row * f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[r][d] = 0.f;
-  }
-#pragma unroll 2
-  for (int j = lane; j < f; j += 32) {
-    float xv[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) xv[r] = rows[r][j];
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const float rv = rot_t[d * f + j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r][d] = fmaf(xv[r], rv, acc[r][d]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-#pragma unroll
-      for (int offset = 16; offset > 0; offset >>= 1) {
-        acc[r][d] += __shfl_xor_sync(0xffffffffu, acc[r][d], offset);
-      }
-    }
+  for (int j = 0; j < H; ++j) {
+    const float send = upper ? v[j] : v[j + H];
+    const float keep = upper ? v[j + H] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, offset);
   }
 }
 
-template <int D>
-__device__ __forceinline__ float score_row(const float (&r1)[D],
-                                           const float (&r2)[D],
-                                           const float* consts) {
-  float s = 0.f;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    s += (r1[d] - consts[d]) * (r2[d] - consts[D + d]) * consts[2 * D + d];
-  }
-  return s;
-}
-
-// Two blocks per SM (at most 128 registers a thread, no spills at D = 10)
-// keep twice the loads of x1 in flight of one block per SM.
-template <int D>
+// At most 128 registers a thread, so two blocks fit on an SM when a plan
+// puts two there (f32_plan).
 __global__ void __launch_bounds__(kThreads, 2)
-fused_cca_decode_kernel(const float* __restrict__ x1,
-                        const float* __restrict__ x2a,
-                        const float* __restrict__ x2b,
-                        const float* __restrict__ rot1_t,
-                        const float* __restrict__ rot2_t,
-                        const float* __restrict__ consts_in,
-                        float* __restrict__ out_a, float* __restrict__ out_b,
-                        int windows, int frames, int f1, int f2,
-                        int windows_per_block) {
-  extern __shared__ float smem[];
-  float* consts = smem;                    // c1 [D], c2 [D], scale [D], intercept
-  float* s_rot1 = consts + 3 * D + 1;      // [D, f1]
-  float* s_rot2 = s_rot1 + D * f1;         // [D, f2]
-  float* part_a = s_rot2 + D * f2;         // [kWarps, windows_per_block]
-  float* part_b = part_a + kWarps * windows_per_block;
+fused_cca_decode_cluster_kernel(const float* __restrict__ x1,
+                                const float* __restrict__ x2a,
+                                const float* __restrict__ x2b,
+                                const float* __restrict__ rot1,
+                                const float* __restrict__ rot2,
+                                const float* __restrict__ consts_in,
+                                float* __restrict__ out_a,
+                                float* __restrict__ out_b, int windows,
+                                int frames, int f1, int f2, int dims,
+                                int windows_per_tile, int slice, int chunk) {
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  // Every block of the cluster has started before any writes to another.
+  cluster_arrive_relaxed();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const Layout lay = layout(chunk, f2, csize, windows_per_tile);
+  float* xs = reinterpret_cast<float*>(f32_smem);
+  float* rot_s = reinterpret_cast<float*>(f32_smem + lay.rot);
+  float* recv = reinterpret_cast<float*>(f32_smem + lay.recv);
+  float* r2_s = reinterpret_cast<float*>(f32_smem + lay.r2);
+  float* x2_s = reinterpret_cast<float*>(f32_smem + lay.x2);
+  float* rot2_s = reinterpret_cast<float*>(f32_smem + lay.rot2);
+  float* consts = reinterpret_cast<float*>(f32_smem + lay.consts);
+  float* scores = reinterpret_cast<float*>(f32_smem + lay.scores);
+  int* rows_s = reinterpret_cast<int*>(f32_smem + lay.rows);
+  float* win = reinterpret_cast<float*>(f32_smem + lay.win);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  for (int i = tid; i < 3 * D + 1; i += kThreads) consts[i] = consts_in[i];
-  for (int i = tid; i < D * f1; i += kThreads) s_rot1[i] = rot1_t[i];
-  for (int i = tid; i < D * f2; i += kThreads) s_rot2[i] = rot2_t[i];
-  for (int i = tid; i < 2 * kWarps * windows_per_block; i += kThreads) {
-    part_a[i] = 0.f;
-  }
-  __syncthreads();
-
-  const int w0 = blockIdx.x * windows_per_block;
-  const int nw = min(windows_per_block, windows - w0);
-  const long long row_begin = static_cast<long long>(w0) * frames;
-  const long long row_end = row_begin + static_cast<long long>(nw) * frames;
   const bool pair = x2b != nullptr;
-  float* my_part_a = part_a + warp * windows_per_block;
-  float* my_part_b = part_b + warp * windows_per_block;
+  const int streams = pair ? 2 : 1;
+  const int k0 = rank * slice;                   // This block's features.
+  const int len = max(0, min(slice, f1 - k0));
+  const int chunks = max(1, (len + chunk - 1) / chunk);
+  const int w0 = static_cast<int>(blockIdx.x) / csize * windows_per_tile;
+  const int nw = min(windows_per_tile, windows - w0);
+  const long long row_begin = static_cast<long long>(w0) * frames;
+  // A tile's rows fit an int: up to 32, or one window's frames.
+  const int tile_rows = nw * frames;
+  const int groups = (tile_rows + kGroup - 1) / kGroup;
+  const int tile_size = csize * kCols;  // recv floats a row.
+  auto x2_row = [&](int s, long long row) {
+    return (s == 0 ? x2a : x2b) + row * f2;
+  };
 
-  for (long long row0 = row_begin + warp * kRows; row0 < row_end;
-       row0 += kWarps * kRows) {
-    float r1[kRows][D];
-    float r2[kRows][D];
-    project_rows<D>(x1, row0, row_end - 1, f1, s_rot1, lane, r1);
-    project_rows<D>(x2a, row0, row_end - 1, f2, s_rot2, lane, r2);
-    if (lane == 0) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (row0 + r < row_end) {
-          my_part_a[(row0 + r) / frames - w0] += score_row<D>(r1[r], r2[r], consts);
+  // rot2 and the constants, once; they land with the first chunk.
+  for (int i = tid; i < f2 * kCols / 4; i += kThreads) {
+    copy_16(rot2_s + 4 * i, rot2 + 4 * i);
+  }
+  for (int i = tid; i < 3 * kCols + 1; i += kThreads) {
+    copy_word(consts + i, consts_in + i);
+  }
+  for (int i = tid; i < 2 * windows_per_tile; i += kThreads) win[i] = 0.f;
+
+  for (int g = 0; g < groups; ++g) {
+    const int group_row = g * kGroup;
+    const int nrows = min(kGroup, tile_rows - group_row);
+    const float* x1_rows = x1 + (row_begin + group_row) * f1 + k0;
+    // Row r (lane r) is scored by the block whose rank is its window
+    // modulo csize; its slot is its place, in row order, among that
+    // block's rows (every warp computes the same).
+    const int owner = lane < nrows ? (group_row + lane) / frames % csize : -1;
+    const int slot = __popc(__match_any_sync(0xffffffffu, owner) &
+                            ((1u << lane) - 1u));
+    const uint32_t owned = __ballot_sync(0xffffffffu, owner == rank);
+    const int n_owned = __popc(owned);
+    // Chunk c of the group's rows of the slice into stage c % 2 (a warp a
+    // row, lanes on consecutive words), with its features of rot1.
+    auto stage_chunk = [&](int c) {
+      const int kc = c * chunk;
+      const int clen = min(chunk, len - kc);
+      float* xd = xs + (c & 1) * kGroup * lay.pitch;
+      for (int r = warp; r < nrows; r += kWarps) {
+        const float* src = x1_rows + static_cast<long long>(r) * f1 + kc;
+        for (int k = lane; k < clen; k += 32) {
+          copy_word(xd + r * lay.pitch + k, src + k);
         }
       }
+      float* rd = rot_s + (c & 1) * chunk * kCols;
+      const float* rsrc = rot1 + static_cast<size_t>(k0 + kc) * kCols;
+      for (int i = tid; i < clen * 4; i += kThreads) {
+        copy_16(rd + rot_word(i >> 2, i & 3), rsrc + 4 * i);
+      }
+    };
+    stage_chunk(0);
+    // The owned rows' x2 rows, with the first chunk; each owned row's
+    // index in the tile by its slot.
+    for (int p = warp; p < n_owned * streams; p += kWarps) {
+      const int s = p / n_owned;
+      const int j = p - s * n_owned;
+      uint32_t m = owned;
+      for (int q = 0; q < j; ++q) m &= m - 1;
+      const int row = group_row + __ffs(m) - 1;
+      if (lane == 0) rows_s[j] = row;
+      const float* src = x2_row(s, row_begin + row);
+      for (int f = lane; f < f2; f += 32) {
+        copy_word(x2_s + (s * kGroup + j) * f2 + f, src + f);
+      }
     }
-    if (pair) {
-      project_rows<D>(x2b, row0, row_end - 1, f2, s_rot2, lane, r2);
-      if (lane == 0) {
+    copy_commit();
+
+    // This warp's rows warp + 8 i times this block's slice of rot1, all 16
+    // columns, lanes on consecutive features; chunk c + 1 is in flight
+    // while c is multiplied. Rows past the group's end read stale words;
+    // their sums are never sent.
+    float acc[kRows][kCols];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          if (row0 + r < row_end) {
-            my_part_b[(row0 + r) / frames - w0] += score_row<D>(r1[r], r2[r], consts);
+    for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+      for (int d = 0; d < kCols; ++d) acc[i][d] = 0.f;
+    }
+    for (int c = 0; c < chunks; ++c) {
+      if (c + 1 < chunks) {
+        stage_chunk(c + 1);
+        copy_commit();
+        copy_wait<1>();
+      } else {
+        copy_wait<0>();
+      }
+      __syncthreads();
+      const int clen = max(0, min(chunk, len - c * chunk));
+      const float* xw = xs + ((c & 1) * kGroup + warp) * lay.pitch;
+      const float* rs = rot_s + (c & 1) * chunk * kCols;
+#pragma unroll 2
+      for (int k = lane; k < clen; k += 32) {
+        float xv[kRows];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) xv[i] = xw[i * kWarps * lay.pitch + k];
+#pragma unroll
+        for (int q = 0; q < kCols / 4; ++q) {
+          const float4 rv =
+              *reinterpret_cast<const float4*>(rs + rot_word(k, q));
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) {
+            acc[i][4 * q] = fmaf(xv[i], rv.x, acc[i][4 * q]);
+            acc[i][4 * q + 1] = fmaf(xv[i], rv.y, acc[i][4 * q + 1]);
+            acc[i][4 * q + 2] = fmaf(xv[i], rv.z, acc[i][4 * q + 2]);
+            acc[i][4 * q + 3] = fmaf(xv[i], rv.w, acc[i][4 * q + 3]);
           }
         }
       }
+      __syncthreads();  // Stage c % 2 is free for chunk c + 2.
     }
-  }
-  __syncthreads();
 
-  const float intercept = consts[3 * D];
-  const float inv_frames = 1.f / static_cast<float>(frames);
-  for (int j = tid; j < nw; j += kThreads) {
-    float sa = 0.f;
-    float sb = 0.f;
+    // The warp's sums over its lanes (a fixed butterfly): lane L ends with
+    // row warp + 8 (L / 8), columns 2 (L % 8) and 2 (L % 8) + 1, which it
+    // sends to the block that scores the row, at this block's rank.
+    float v[kRows * kCols];
 #pragma unroll
-    for (int k = 0; k < kWarps; ++k) {
-      sa += part_a[k * windows_per_block + j];
-      sb += part_b[k * windows_per_block + j];
+    for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+      for (int d = 0; d < kCols; ++d) v[i * kCols + d] = acc[i][d];
     }
-    out_a[w0 + j] = sa * inv_frames + intercept;
-    if (pair) out_b[w0 + j] = sb * inv_frames + intercept;
+    fold<32>(v, lane, 16);
+    fold<16>(v, lane, 8);
+    fold<8>(v, lane, 4);
+    fold<4>(v, lane, 2);
+    fold<2>(v, lane, 1);
+    const int row = warp + kWarps * (lane >> 3);
+    const int row_owner = __shfl_sync(0xffffffffu, owner, row);
+    const int row_slot = __shfl_sync(0xffffffffu, slot, row);
+    if (g == 0) cluster_wait();  // Every block has started.
+    if (row < nrows) {
+      float* dst = recv + ((g & 1) * kGroup + row_slot) * tile_size +
+                   rank * kCols + 2 * (lane & 7);
+      *reinterpret_cast<float2*>(cluster.map_shared_rank(dst, row_owner)) =
+          make_float2(v[0], v[1]);
+    }
+    cluster_arrive();  // This block's partial r1 of the group is sent.
+
+    // r2 of this block's rows while the others send: item i = (slot,
+    // stream, column), the same thread as below.
+    const int items = n_owned * 2 * kCols;
+    for (int i = tid; i < items; i += kThreads) {
+      const int d = i % kCols;
+      const int s = i / kCols & 1;
+      if (s < streams && d < dims) {
+        const float* x2 = x2_s + (s * kGroup + i / (2 * kCols)) * f2;
+        float part2[4] = {0.f, 0.f, 0.f, 0.f};  // Four chains, fixed order.
+        int f = 0;
+        for (; f + 4 <= f2; f += 4) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            part2[u] = fmaf(x2[f + u], rot2_s[(f + u) * kCols + d], part2[u]);
+          }
+        }
+        for (; f < f2; ++f) {
+          part2[0] = fmaf(x2[f], rot2_s[f * kCols + d], part2[0]);
+        }
+        r2_s[i] = (part2[0] + part2[1]) + (part2[2] + part2[3]);
+      }
+    }
+    cluster_wait();  // Every block's partials of this block's rows are in.
+
+    // Score this block's rows: r1 is the partials in rank order; a row's
+    // columns are summed by a butterfly over its 16 lanes.
+    for (int base = 0; base < items; base += kThreads) {
+      const int i = base + tid;
+      const int d = i % kCols;
+      float term = 0.f;
+      if (i < items) {
+        const int s = i / kCols & 1;
+        if (s < streams && d < dims) {
+          const float* sent =
+              recv + ((g & 1) * kGroup + i / (2 * kCols)) * tile_size + d;
+          float r1 = sent[0];
+#pragma unroll
+          for (int q = 1; q < kMaxCluster; ++q) {
+            if (q < csize) r1 += sent[q * kCols];
+          }
+          term = (r1 - consts[d]) * (r2_s[i] - consts[kCols + d]) *
+                 consts[2 * kCols + d];
+        }
+      }
+#pragma unroll
+      for (int offset = kCols / 2; offset > 0; offset >>= 1) {
+        term += __shfl_xor_sync(0xffffffffu, term, offset);
+      }
+      if (i < items && d == 0) scores[i / kCols] = term;
+    }
+    __syncthreads();
+    // Each window's rows of the group (consecutive slots), summed in row
+    // order by the thread of its first, onto the window's sum; a window's
+    // mean is written with its last row.
+    for (int i = tid; i < 2 * n_owned; i += kThreads) {
+      const int s = i & 1;
+      const int j = i >> 1;
+      const int w = rows_s[j] / frames;
+      if (s >= streams || (j > 0 && rows_s[j - 1] / frames == w)) continue;
+      float sum = scores[i];
+      int last = j;
+      while (last + 1 < n_owned && rows_s[last + 1] / frames == w) {
+        sum += scores[2 * ++last + s];
+      }
+      float& total = win[s * windows_per_tile + w];
+      total += sum;
+      if ((rows_s[last] + 1) % frames == 0) {
+        (s == 0 ? out_a : out_b)[w0 + w] =
+            total / static_cast<float>(frames) + consts[3 * kCols];
+      }
+    }
+    if (g + 1 < groups) __syncthreads();  // rows_s, scores are free.
   }
 }
 
-template <int D>
-cudaError_t launch(const float* x1, const float* x2a, const float* x2b,
-                   const float* rot1_t, const float* rot2_t,
-                   const float* consts, float* out_a, float* out_b,
-                   int windows, int frames, int f1, int f2,
-                   int windows_per_block, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      (3 * D + 1 + static_cast<size_t>(D) * (f1 + f2) +
-       2 * kWarps * static_cast<size_t>(windows_per_block));
-  auto kernel = fused_cca_decode_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int blocks = (windows + windows_per_block - 1) / windows_per_block;
-  kernel<<<blocks, kThreads, smem, stream>>>(
-      x1, x2a, x2b, rot1_t, rot2_t, consts, out_a, out_b, windows, frames,
-      f1, f2, windows_per_block);
-  return cudaGetLastError();
-}
-
-}  // namespace
+}  // namespace f32
 
 namespace mma {
 
@@ -691,33 +907,75 @@ fused_cca_decode_mma_kernel(const __nv_bfloat16* __restrict__ x1,
 
 }  // namespace mma
 
-// float32 windows. x2b and out_b are null for the single-stream form.
-// consts holds c1 [d], c2 [d], scale [d] and the intercept; rot1_t [d, f1]
-// and rot2_t [d, f2].
+// float32 windows: the shape and launch plan, built once per call
+// signature by the caller (ops/decode_kernel.py::F32Plan, the same fields
+// in the same order; the plan, cluster blocks a tile of windows_per_tile
+// windows, slice features a block, staged chunk at a time, is f32_plan).
+struct F32Plan {
+  int windows, frames, f1, f2, d, cluster, windows_per_tile, slice, chunk;
+};
+
+// rot1 [f1, 16] and rot2 [f2, 16] are zero past column d; consts holds
+// c1, c2 and scale (each zero-padded to 16) and the intercept
+// (prepared_operands). x2b and out_b are null for the single-stream form.
+// The kernel's attributes are set once per device; a cluster launch the
+// card refuses returns its error.
 extern "C" int tdt_fused_cca_decode(const float* x1, const float* x2a,
-                                    const float* x2b, const float* rot1_t,
-                                    const float* rot2_t, const float* consts,
-                                    float* out_a, float* out_b, int windows,
-                                    int frames, int f1, int f2, int d,
-                                    int windows_per_block, void* stream) {
-  if (windows <= 0 || frames <= 0 || windows_per_block <= 0) {
+                                    const float* x2b, const float* rot1,
+                                    const float* rot2, const float* consts,
+                                    float* out_a, float* out_b,
+                                    const F32Plan* p, void* stream) {
+  const int windows = p->windows, frames = p->frames, f1 = p->f1,
+            f2 = p->f2, d = p->d, cluster = p->cluster,
+            windows_per_tile = p->windows_per_tile, slice = p->slice,
+            chunk = p->chunk;
+  if (windows <= 0 || frames <= 0 || f1 < 1 || f2 < 0 || d < 1 ||
+      d > f32::kCols || cluster < 1 || cluster > f32::kMaxCluster ||
+      windows_per_tile < 1 || slice < 1 ||
+      static_cast<long long>(slice) * cluster < f1 || chunk < 1 ||
+      chunk > slice) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-#define TDT_DIMS_CASE(N)                                                   \
-  case N:                                                                  \
-    return static_cast<int>(launch<N>(x1, x2a, x2b, rot1_t, rot2_t, consts, \
-                                      out_a, out_b, windows, frames, f1,   \
-                                      f2, windows_per_block, s));
-    TDT_DIMS_CASE(1) TDT_DIMS_CASE(2) TDT_DIMS_CASE(3) TDT_DIMS_CASE(4)
-    TDT_DIMS_CASE(5) TDT_DIMS_CASE(6) TDT_DIMS_CASE(7) TDT_DIMS_CASE(8)
-    TDT_DIMS_CASE(9) TDT_DIMS_CASE(10) TDT_DIMS_CASE(11) TDT_DIMS_CASE(12)
-    TDT_DIMS_CASE(13) TDT_DIMS_CASE(14) TDT_DIMS_CASE(15) TDT_DIMS_CASE(16)
-#undef TDT_DIMS_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const f32::Layout lay = f32::layout(chunk, f2, cluster, windows_per_tile);
+  if (lay.total > f32::kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = f32::fused_cca_decode_cluster_kernel;
+  constexpr int kMaxDevices = 64;
+  static bool configured[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < 0 || device >= kMaxDevices) {
+    return static_cast<int>(cudaErrorInvalidDevice);
   }
+  if (!configured[device]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(f32::kMaxSmem));
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured[device] = true;
+  }
+  const int tiles = (windows + windows_per_tile - 1) / windows_per_tile;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(tiles) * cluster);
+  config.blockDim = dim3(f32::kThreads);
+  config.dynamicSmemBytes = lay.total;
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, x1, x2a, x2b, rot1, rot2, consts,
+                           out_a, out_b, windows, frames, f1, f2, d,
+                           windows_per_tile, slice, chunk);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // bf16 windows. b1 and b2 are rot1 and rot2 in B-fragment order

@@ -109,8 +109,7 @@ def library() -> ctypes.CDLL:
         lib.tdt_lag_stack_f32.argtypes = [_VOID_P, _VOID_P, _INT, _INT,
                                           _INT, _INT, _VOID_P]
         lib.tdt_lag_stack_f32.restype = _INT
-        lib.tdt_fused_cca_decode.argtypes = (
-            [_VOID_P] * 8 + [_INT] * 6 + [_VOID_P])
+        lib.tdt_fused_cca_decode.argtypes = [_VOID_P] * 10
         lib.tdt_fused_cca_decode.restype = _INT
         lib.tdt_fused_cca_decode_bf16.argtypes = (
             [_VOID_P] * 8 + [_INT] * 7 + [_VOID_P])
@@ -132,6 +131,15 @@ def check(code: int, what: str) -> None:
 
 
 def stream_handle(device) -> int:
-    """The raw handle of PyTorch's current stream on ``device``."""
+    """The raw handle of PyTorch's current stream on ``device`` (a CUDA
+    device with an index).
+
+    torch._C._cuda_getCurrentRawStream (private; present in torch 2.x up
+    to 2.11 at least) skips building a Stream object, a few microseconds
+    a call. A torch without it takes the public current_stream.
+    """
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    raw = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+    if raw is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return raw(device.index)

@@ -16,7 +16,7 @@ scores are windows of T = 1.
     replaces the Pallas kernel of the same name. It also takes a second
     x2 stream and scores both against one read of x1. bf16 windows go
     to the tensor-core kernel, float32 ones (the serving path) to the
-    CUDA-core kernel.
+    cluster kernel, whose launch plan f32_plan computes.
   * prepared_operands: the rotations and constants in each kernel's
     form, kept per parameter set and dtype so a served chunk does not
     rebuild them; pack_mma_b is the bf16 B-operand packing it uses.
@@ -25,6 +25,7 @@ scores are windows of T = 1.
 from __future__ import annotations
 
 import collections
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
@@ -32,14 +33,24 @@ import torch
 from telluride_decoding_torch import kernels
 
 MAX_DIMS = 16
-# Dynamic shared memory one block may opt into on sm_90 (227 KB).
+# Dynamic shared memory one block may opt into on sm_90 (227 KB), of the
+# SM's 228 KB, of which the runtime reserves 1 KB a block.
 _MAX_SMEM_BYTES = 232448
-# Must match kWarps in csrc/decode_kernel.cu.
+_SM_SMEM_BYTES = 233472
+_BLOCK_SMEM_RESERVED = 1024
+# Must match mma::kWarps in csrc/decode_kernel.cu.
 _KERNEL_WARPS = 8
-# A block takes at least this many rows (frames), so that staging the
-# rotations in shared memory is paid for by enough rows of x1.
-_MIN_ROWS_PER_BLOCK = 32
 _MAX_WINDOWS_PER_BLOCK = 1024
+# The float32 cluster kernel (must match namespace f32 in
+# csrc/decode_kernel.cu): rows walked in groups of 32, all products in 16
+# columns (D zero-padded).
+F32_GROUP = 32
+F32_COLS = 16
+# Largest cluster the plan takes: 16 (non-portable), which beat 8 (the
+# portable size) on the serving pair in device time (PERF.md, PR 5).
+F32_MAX_CLUSTER = 16
+# Features of a block's slice staged at a time.
+F32_MAX_CHUNK = 320
 _DTYPES = (torch.float32, torch.bfloat16)
 # The tensor-core kernel (must match namespace mma in
 # csrc/decode_kernel.cu): groups of 16 rows, two n8 tiles (D <= 16),
@@ -53,6 +64,11 @@ _MMA_PITCH_PAD = 16
 # Prepared operands kept (see prepared_operands).
 _PREPARED_SIZE = 16
 _prepared = collections.OrderedDict()
+# Checked launches per call signature (see _launch_plan), and the SM
+# count per device index.
+_PLANS_SIZE = 256
+_plans = {}
+_sms = {}
 
 
 class FoldedDecode(NamedTuple):
@@ -128,50 +144,76 @@ def pack_mma_b(rot: torch.Tensor) -> torch.Tensor:
 class PreparedOperands(NamedTuple):
     """One kernel's rotations and constants, float32 unless stated.
 
-    float32 inputs (CUDA-core kernel): rot1 [D, F1], rot2 [D, F2] and
-    consts [c1 (D), c2 (D), scale (D), intercept]. bf16 inputs
-    (tensor-core kernel): rot1 and rot2 through pack_mma_b (bf16) and
-    consts [c1, c2, scale (each padded to 16), intercept].
-    Both rotations are rounded to the inputs' dtype first, as the JAX
-    decode does (decode_kernel.py:177).
+    float32 inputs (cluster kernel): rot1 [F1, 16] and rot2 [F2, 16],
+    zero past column D, and consts [c1, c2, scale (each padded to 16),
+    intercept]. bf16 inputs (tensor-core kernel):
+    rot1 and rot2 through pack_mma_b (bf16) and consts [c1, c2, scale
+    (each padded to 16), intercept]. Both rotations are rounded to the
+    inputs' dtype first, as the JAX decode does (decode_kernel.py:177).
+    ``pointers`` are the three tensors' addresses.
     """
 
     rot1: torch.Tensor
     rot2: torch.Tensor
     consts: torch.Tensor
+    pointers: tuple
+
+
+class F32Plan(ctypes.Structure):
+    """The float32 kernel's shape and launch plan (F32Plan in
+    csrc/decode_kernel.cu, the same fields in the same order), built once
+    per call signature. One pointer to it replaces nine ctypes arguments
+    a call."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        'windows', 'frames', 'f1', 'f2', 'd', 'cluster', 'windows_per_tile',
+        'slice', 'chunk')]
+
+
+def _padded_consts(folded: FoldedDecode, cols: int) -> torch.Tensor:
+    d = folded.rot1.shape[1]
+    consts = torch.zeros(3 * cols + 1, device=folded.rot1.device)
+    for i, v in enumerate((folded.c1, folded.c2, folded.scale)):
+        consts[i * cols:i * cols + d] = v
+    consts[-1] = folded.intercept
+    return consts
+
+
+def _padded_columns(rot: torch.Tensor, cols: int) -> torch.Tensor:
+    out = torch.zeros((rot.shape[0], cols), device=rot.device)
+    out[:, :rot.shape[1]] = rot
+    return out
 
 
 def _prepare(folded: FoldedDecode, dtype: torch.dtype) -> PreparedOperands:
-    vectors = (folded.c1, folded.c2, folded.scale)
+    # Launch plans are kept per rot1 device; the rest must share it.
+    if any(t.device != folded.rot1.device for t in folded):
+        raise ValueError('fused_cca_decode needs the folded parameters on one '
+                         'device, got %s.'
+                         % sorted({str(t.device) for t in folded}))
     if dtype == torch.float32:
-        # [D, F] so a warp's lanes read consecutive shared-memory words.
-        return PreparedOperands(
-            folded.rot1.t().contiguous(), folded.rot2.t().contiguous(),
-            torch.cat([*vectors, folded.intercept.reshape(1)]).contiguous())
-    d = folded.rot1.shape[1]
-    consts = torch.zeros(3 * MMA_COLS + 1, device=folded.rot1.device)
-    for i, v in enumerate(vectors):
-        consts[i * MMA_COLS:i * MMA_COLS + d] = v
-    consts[-1] = folded.intercept
-    return PreparedOperands(pack_mma_b(folded.rot1), pack_mma_b(folded.rot2),
-                            consts)
-
-
-def _tensor_key(t: torch.Tensor):
-    return (t.data_ptr(), t._version, tuple(t.shape), t.dtype, str(t.device))
+        # A feature's 16 columns are 64 aligned bytes: a block's slice of
+        # features is one contiguous run of 16-byte copies.
+        tensors = (_padded_columns(folded.rot1, F32_COLS),
+                   _padded_columns(folded.rot2, F32_COLS),
+                   _padded_consts(folded, F32_COLS))
+    else:
+        tensors = (pack_mma_b(folded.rot1), pack_mma_b(folded.rot2),
+                   _padded_consts(folded, MMA_COLS))
+    return PreparedOperands(*tensors, tuple(t.data_ptr() for t in tensors))
 
 
 def prepared_operands(folded: FoldedDecode,
                       dtype: torch.dtype) -> PreparedOperands:
     """The kernel operands for ``folded`` and inputs of ``dtype``.
 
-    Kept in an LRU of the last few parameter sets, keyed by each folded
-    tensor's address, version counter, shape and dtype: a refit (new
-    tensors) or an in-place edit (a new version) gives a new entry. An
-    entry holds the folded tensors too, so no new tensor can take the
-    address of a cached one while the entry lives.
+    Kept in an LRU of the last few parameter sets, keyed by the folded
+    tuple's identity and each tensor's version counter: a refit (a new
+    tuple) or an in-place edit (a new version) gives a new entry. An
+    entry holds the folded tuple, so no new tuple can take the identity
+    of a cached one while the entry lives.
     """
-    key = (dtype, *(_tensor_key(t) for t in folded))
+    key = (dtype, id(folded), *(t._version for t in folded))
     hit = _prepared.get(key)
     if hit is not None:
         _prepared.move_to_end(key)
@@ -183,11 +225,56 @@ def prepared_operands(folded: FoldedDecode,
     return operands
 
 
-def _windows_per_block(device, windows: int, frames: int) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    target = -(-windows // (2 * sms))           # About two blocks per SM.
-    floor = -(-_MIN_ROWS_PER_BLOCK // frames)
-    return max(1, min(max(target, floor), _MAX_WINDOWS_PER_BLOCK))
+def f32_smem_bytes(chunk: int, f2: int, cluster: int,
+                   windows_per_tile: int) -> int:
+    """Dynamic shared memory of the float32 kernel (f32::layout() in
+    csrc/decode_kernel.cu): two stages of a group's 32 rows of a chunk of
+    the block's feature slice and of the chunk's rot1, the partial r1 the
+    cluster's blocks send for this block's rows (two buffers), r2 of its
+    rows, their x2 rows (both streams), rot2, the constants, row scores,
+    the rows' indices and window sums."""
+    pitch = (chunk + 3) // 4 * 4
+    return (2 * F32_GROUP * pitch * 4 + 2 * chunk * F32_COLS * 4
+            + 2 * F32_GROUP * cluster * F32_COLS * 4
+            + F32_GROUP * 2 * F32_COLS * 4 + 2 * F32_GROUP * f2 * 4
+            + f2 * F32_COLS * 4 + ((3 * F32_COLS + 1) * 4 + 15) // 16 * 16
+            + 2 * F32_GROUP * 4 + F32_GROUP * 4 + 2 * windows_per_tile * 4)
+
+
+def f32_plan(windows: int, frames: int, f1: int, f2: int, sms: int):
+    """(cluster, windows_per_tile, slice, chunk, shared bytes) of the
+    float32 kernel.
+
+    A cluster of ``cluster`` blocks owns a tile of whole windows, as
+    many as fit in 32 rows (one when a window is longer; its rows are
+    then walked 32 at a time). Block k of the cluster takes features
+    [k * slice, (k + 1) * slice) of every row, staged ``chunk`` features
+    at a time in two alternating stages. The cluster is the smallest
+    power of two that gives every SM a block (at most F32_MAX_CLUSTER):
+    a served chunk of frames, one tile, spreads over the largest
+    cluster, many tiles over small ones. The chunk is the slice up to
+    F32_MAX_CHUNK features, narrowed by 32 until the blocks an SM must
+    hold at once (one, or two when there are more blocks than SMs) fit
+    in its shared memory.
+    """
+    wpt = max(1, F32_GROUP // frames)
+    tiles = -(-windows // wpt)
+    cluster = 1
+    while cluster < F32_MAX_CLUSTER and tiles * cluster < sms:
+        cluster *= 2
+    per_sm = 1 if tiles * cluster <= sms else 2
+    budget = min(_MAX_SMEM_BYTES,
+                 _SM_SMEM_BYTES // per_sm - _BLOCK_SMEM_RESERVED)
+    slice_ = -(-f1 // cluster)
+    chunk = min(slice_, F32_MAX_CHUNK)
+    while f32_smem_bytes(chunk, f2, cluster, wpt) > budget and chunk > 32:
+        chunk = (chunk - 1) // 32 * 32
+    smem = f32_smem_bytes(chunk, f2, cluster, wpt)
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError('fused_cca_decode: x2 rows of %d features need %d '
+                         'bytes of shared memory a block, more than a block '
+                         'has (%d).' % (f2, smem, _MAX_SMEM_BYTES))
+    return cluster, wpt, slice_, chunk, smem
 
 
 def mma_smem_bytes(chunk: int, f2: int, windows_per_block: int) -> int:
@@ -226,21 +313,30 @@ def mma_plan(f1: int, f2: int, windows: int, sms: int):
     return chunk, wpb, smem
 
 
-def fused_cca_decode(folded: FoldedDecode, x1: torch.Tensor,
-                     x2: torch.Tensor,
-                     x2b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Fused decode: kernel K1 on CUDA.
+class _Launch(NamedTuple):
+    """A checked launch: the windows, the C entry point (None for no
+    windows), its arguments after the pointers and, for float32, the
+    F32Plan those arguments point to (kept alive here)."""
 
-    Returns [W] scores, or [2, W] (one row per x2 stream) when ``x2b``
-    is given. CPU tensors take fused_cca_decode_reference. CUDA tensors
-    launch a kernel once or raise: inputs must be contiguous float32
-    (CUDA-core kernel) or bfloat16 (tensor-core kernel) of one dtype, on
-    the device of the folded parameters, with D <= 16.
-    """
+    windows: int
+    entry: object
+    args: tuple
+    struct: Optional[F32Plan] = None
+
+
+def _sm_count(device) -> int:
+    sms = _sms.get(device.index)
+    if sms is None:
+        sms = _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return sms
+
+
+def _launch_plan(folded: FoldedDecode, x1: torch.Tensor, x2: torch.Tensor,
+                 x2b: Optional[torch.Tensor]) -> _Launch:
+    """Checks what depends only on shapes, dtypes and devices, and plans
+    the launch; raises ValueError on what no kernel takes."""
     streams = [x2] if x2b is None else [x2, x2b]
-    if x1.device.type == 'cpu':
-        scores = [fused_cca_decode_reference(folded, x1, s) for s in streams]
-        return scores[0] if x2b is None else torch.stack(scores)
     tensors = [x1, *streams, *folded]
     if any(t.device != x1.device for t in tensors) or \
             x1.device.type != 'cuda':
@@ -251,8 +347,6 @@ def fused_cca_decode(folded: FoldedDecode, x1: torch.Tensor,
         raise ValueError('fused_cca_decode takes float32 or bfloat16 x1 '
                          'and x2 of one dtype, got %s.'
                          % [str(t.dtype) for t in (x1, *streams)])
-    if not all(t.is_contiguous() for t in (x1, *streams)):
-        raise ValueError('fused_cca_decode needs contiguous inputs.')
     if any(t.dim() != 3 for t in (x1, *streams)):
         raise ValueError('fused_cca_decode takes [W, T, F] windows.')
     f1, d = folded.rot1.shape
@@ -271,38 +365,66 @@ def fused_cca_decode(folded: FoldedDecode, x1: torch.Tensor,
                             tuple(folded.rot2.shape)))
     if frames < 1:
         raise ValueError('fused_cca_decode needs T >= 1 frames.')
-    out = torch.empty((len(streams), windows), dtype=torch.float32,
-                      device=x1.device)
     if windows == 0:
-        return out[0] if x2b is None else out
-    if x1.dtype == torch.bfloat16:
-        sms = torch.cuda.get_device_properties(
-            x1.device).multi_processor_count
-        chunk, wpb, _ = mma_plan(f1, f2, windows, sms)
-    else:
-        wpb = _windows_per_block(x1.device, windows, frames)
-        smem = 4 * (3 * d + 1 + d * (f1 + f2) + 2 * _KERNEL_WARPS * wpb)
-        if smem > _MAX_SMEM_BYTES:
-            raise ValueError('fused_cca_decode: rotations of %d x %d and %d '
-                             'x %d need %d bytes of shared memory, more than '
-                             'a block has (%d).'
-                             % (f1, d, f2, d, smem, _MAX_SMEM_BYTES))
-    operands = prepared_operands(folded, x1.dtype)
+        return _Launch(0, None, ())
+    sms = _sm_count(x1.device)
     lib = kernels.library()
-    pointers = (x1.data_ptr(), x2.data_ptr(),
-                None if x2b is None else x2b.data_ptr(),
-                *(t.data_ptr() for t in operands),
-                out[0].data_ptr(), None if x2b is None else out[1].data_ptr())
-    stream = kernels.stream_handle(x1.device)
     if x1.dtype == torch.bfloat16:
-        code = lib.tdt_fused_cca_decode_bf16(
-            *pointers, windows, frames, f1, f2, d, chunk, wpb, stream)
-    else:
-        code = lib.tdt_fused_cca_decode(*pointers, windows, frames, f1, f2,
-                                        d, wpb, stream)
+        chunk, wpb, _ = mma_plan(f1, f2, windows, sms)
+        return _Launch(windows, lib.tdt_fused_cca_decode_bf16,
+                       (windows, frames, f1, f2, d, chunk, wpb))
+    cluster, wpt, slice_, chunk, _ = f32_plan(windows, frames, f1, f2, sms)
+    struct = F32Plan(windows, frames, f1, f2, d, cluster, wpt, slice_, chunk)
+    return _Launch(windows, lib.tdt_fused_cca_decode,
+                   (ctypes.addressof(struct),), struct)
+
+
+def fused_cca_decode(folded: FoldedDecode, x1: torch.Tensor,
+                     x2: torch.Tensor,
+                     x2b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused decode: kernel K1 on CUDA.
+
+    Returns [W] scores, or [2, W] (one row per x2 stream) when ``x2b``
+    is given. CPU tensors take fused_cca_decode_reference. CUDA tensors
+    launch a kernel once or raise: inputs must be contiguous float32
+    (cluster kernel) or bfloat16 (tensor-core kernel) of one dtype, on
+    the device of the folded parameters, with D <= 16. The checks that
+    depend only on shapes, dtypes and devices, and the launch plan, are
+    kept per call signature, so a served chunk pays for them once.
+    """
+    single = x2b is None
+    if x1.device.type == 'cpu':
+        scores = [fused_cca_decode_reference(folded, x1, s)
+                  for s in ([x2] if single else [x2, x2b])]
+        return scores[0] if single else torch.stack(scores)
+    key = (x1.shape, x2.shape, None if single else x2b.shape,
+           x1.dtype, x2.dtype, None if single else x2b.dtype,
+           x1.device, x2.device, None if single else x2b.device,
+           folded.rot1.shape, folded.rot2.shape, folded.rot1.device)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _launch_plan(folded, x1, x2, x2b)
+        if len(_plans) >= _PLANS_SIZE:
+            _plans.clear()
+        _plans[key] = plan
+    if not (x1.is_contiguous() and x2.is_contiguous()
+            and (single or x2b.is_contiguous())):
+        raise ValueError('fused_cca_decode needs contiguous inputs.')
+    windows = plan.windows
+    out = torch.empty((windows,) if single else (2, windows),
+                      dtype=torch.float32, device=x1.device)
+    if windows == 0:
+        return out
+    operands = prepared_operands(folded, x1.dtype)
+    out_a = out.data_ptr()
+    pointers = (x1.data_ptr(), x2.data_ptr(),
+                None if single else x2b.data_ptr())
+    outputs = (out_a, None if single else out_a + 4 * windows)
+    code = plan.entry(*pointers, *operands.pointers, *outputs, *plan.args,
+                      kernels.stream_handle(x1.device))
     kernels.check(code, 'fused_cca_decode')
     fused_cca_decode.launches += 1
-    return out[0] if x2b is None else out
+    return out
 
 
 fused_cca_decode.launches = 0

@@ -83,6 +83,81 @@ def test_fused_cca_decode_matches_plain(cuda, w, t, dtype):
         decode_kernel.fused_cca_decode(folded, x1, x2a.double())
 
 
+F32_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _f32_windows(cuda, seed, w, t, f1, f2=31):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn((w, t, f), generator=gen, device=cuda)
+                 for f in (f1, f2, f2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('f1', [31, 1408, 2553, 5000])
+@pytest.mark.parametrize('d', [1, 5, 10, 16])
+@pytest.mark.parametrize('w,t', [(1, 1), (11, 1), (28, 1), (32, 1), (33, 1),
+                                 (4096, 1), (7, 13), (64, 100)])
+def test_fused_cca_decode_f32_matches_plain(cuda, w, t, d, f1):
+    """The float32 cluster kernel, single and pair form, against the
+    plain version: served chunks (T = 1, up to 33 frames), many windows
+    (4096, fewer blocks a cluster) and windows of many frames (rows
+    walked 32 at a time); each call launches once."""
+    rng = np.random.RandomState(100 * d + f1 % 97)
+    folded = _folded(cuda, rng, f1, 31, d)
+    x1, x2a, x2b = _f32_windows(cuda, w * t + f1, w, t, f1)
+    before = decode_kernel.fused_cca_decode.launches
+    single = decode_kernel.fused_cca_decode(folded, x1, x2a)
+    assert decode_kernel.fused_cca_decode.launches == before + 1
+    pair = decode_kernel.fused_cca_decode(folded, x1, x2a, x2b)
+    assert decode_kernel.fused_cca_decode.launches == before + 2
+    want_a = decode_kernel.fused_cca_decode_reference(folded, x1, x2a)
+    want_b = decode_kernel.fused_cca_decode_reference(folded, x1, x2b)
+    torch.testing.assert_close(single, want_a, **F32_TOL)
+    torch.testing.assert_close(pair, torch.stack([want_a, want_b]),
+                               **F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('w,t,f1,d', [(32, 1, 2553, 10), (32, 1, 1408, 5),
+                                      (4096, 1, 2553, 10),
+                                      (64, 100, 1408, 5)])
+def test_fused_cca_decode_f32_is_bitwise_repeatable(cuda, w, t, f1, d):
+    """No float atomics: the sums are taken in one fixed order, so two
+    calls on the same inputs give the same bits."""
+    folded = _folded(cuda, np.random.RandomState(5), f1, 31, d)
+    x1, x2a, x2b = _f32_windows(cuda, 5, w, t, f1)
+    first = decode_kernel.fused_cca_decode(folded, x1, x2a, x2b)
+    second = decode_kernel.fused_cca_decode(folded, x1, x2a, x2b)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('w,t', [(32, 1), (40, 13)])
+def test_fused_cca_decode_f32_contains_non_finite_frames(cuda, w, t):
+    """A NaN in one frame of x1, at the first feature of a block's slice
+    (which the previous row's aligned-down copy also reads), and an inf
+    in x2 of another frame: only their windows change."""
+    f1, d = 2553, 10
+    folded = _folded(cuda, np.random.RandomState(6), f1, 31, d)
+    x1, x2a, x2b = _f32_windows(cuda, 6, w, t, f1)
+    _, _, slice_, _, _ = decode_kernel.f32_plan(
+        w, t, f1, 31, decode_kernel._sm_count(cuda))
+    x1[5, t - 1, slice_] = float('nan')
+    x2b[20, 0, 30] = float('inf')
+    got = decode_kernel.fused_cca_decode(folded, x1, x2a, x2b)
+    want = torch.stack([
+        decode_kernel.fused_cca_decode_reference(folded, x1, x2a),
+        decode_kernel.fused_cca_decode_reference(folded, x1, x2b)])
+    keep = torch.ones(w, dtype=torch.bool, device=cuda)
+    keep[5] = False
+    assert torch.isfinite(got[:, keep][0]).all()
+    assert not torch.isfinite(got[:, 5]).any()
+    assert not torch.isfinite(got[1, 20])
+    keep[20] = False
+    assert torch.isfinite(got[:, keep]).all()
+    torch.testing.assert_close(got[:, keep], want[:, keep], **F32_TOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('f1,f2', [(2553, 31), (2553, 5), (1408, 31),
                                    (1408, 5), (17, 31), (17, 5)])

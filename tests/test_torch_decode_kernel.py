@@ -141,9 +141,16 @@ def test_prepared_operands_are_kept_per_parameter_set(rng):
     bf16 = decode_kernel.prepared_operands(folded, torch.bfloat16)
     f32 = decode_kernel.prepared_operands(folded, torch.float32)
     assert bf16 is not f32
-    # float32: rotations transposed, constants c1, c2, scale, intercept.
-    torch.testing.assert_close(f32.rot1, folded.rot1.t(), rtol=0, atol=0)
-    assert f32.consts.shape == (3 * 10 + 1,)
+    # float32: rotations zero-padded to 16 columns (D = 10), constants c1,
+    # c2, scale padded the same, then the intercept.
+    for got, rot in ((f32.rot1, folded.rot1), (f32.rot2, folded.rot2)):
+        assert tuple(got.shape) == (rot.shape[0], 16)
+        torch.testing.assert_close(got[:, :10], rot, rtol=0, atol=0)
+        assert not got[:, 10:].any()
+    assert f32.consts.shape == (3 * 16 + 1,)
+    torch.testing.assert_close(f32.consts[32:42], folded.scale, rtol=0,
+                               atol=0)
+    assert f32.pointers == tuple(t.data_ptr() for t in f32[:3])
     # bf16: both rotations as B fragments, constants padded to 16.
     for got, rot in ((bf16.rot1, folded.rot1), (bf16.rot2, folded.rot2)):
         torch.testing.assert_close(got, decode_kernel.pack_mma_b(rot),
@@ -180,3 +187,64 @@ def test_mma_plan_fits_shared_memory(f1, f2, windows, chunk, wpb):
 def test_mma_plan_raises_when_x2_rows_cannot_fit():
     with pytest.raises(ValueError):
         decode_kernel.mma_plan(2553, 4000, 512, 132)
+
+
+@pytest.mark.parametrize('n,f1,d', [(11, 2553, 10), (28, 2553, 10),
+                                    (32, 2553, 10), (11, 1408, 5),
+                                    (28, 1408, 5), (32, 1408, 5)])
+def test_f32_serving_pair_matches_jax(rng, n, f1, d):
+    """The serving call: a chunk of N frames as windows of T = 1, pair
+    form, at codelab (2553, D 10) and KULeuven (1408, D 5) width, against
+    the JAX reference and, where N is a multiple of its 8-row tiling, the
+    JAX kernel in interpret mode."""
+    params = _params(rng, f1=f1, d=d)
+    x1 = rng.randn(n, 1, f1).astype(np.float32)
+    x2a = rng.randn(n, 1, 31).astype(np.float32)
+    x2b = rng.randn(n, 1, 31).astype(np.float32)
+    got = decode_kernel.fused_cca_decode(
+        _folded(params), *(torch.from_numpy(a) for a in (x1, x2a, x2b)))
+    assert tuple(got.shape) == (2, n)
+    for row, x2 in zip(got.numpy(), (x2a, x2b)):
+        np.testing.assert_allclose(
+            row, np.asarray(jax_decode.fused_cca_decode_reference(
+                _jax(params), jnp.asarray(x1), jnp.asarray(x2))), **F32_TOL)
+        if n % 8 == 0:
+            np.testing.assert_allclose(
+                row, np.asarray(jax_decode.fused_cca_decode(
+                    _jax(params), jnp.asarray(x1), jnp.asarray(x2),
+                    window_block=8, interpret=True)), **F32_TOL)
+
+
+@pytest.mark.parametrize('windows,frames,f1,d', [
+    (32, 1, 2553, 10), (32, 1, 1408, 5),      # A served chunk.
+    (11, 1, 2553, 10), (28, 1, 1408, 5),      # Shorter chunks.
+    (33, 1, 2553, 10),                        # Two tiles.
+    (4096, 1, 2553, 10), (4096, 1, 1408, 5),  # Many tiles.
+    (7, 13, 2553, 10), (64, 100, 2553, 10),   # Windows of many frames.
+    (1, 1, 31, 1), (3, 1, 5, 16), (300, 13, 5000, 16),
+])
+def test_f32_plan_splits_features_over_a_cluster(windows, frames, f1, d):
+    del d  # The kernel takes every D <= 16 in 16 columns.
+    cluster, wpt, slice_, chunk, smem = decode_kernel.f32_plan(
+        windows, frames, f1, 31, 132)
+    assert cluster in (1, 2, 4, 8, 16)
+    # Every feature falls in exactly one block's slice, staged in chunks.
+    owners = np.zeros(f1, int)
+    for k in range(cluster):
+        owners[k * slice_:min((k + 1) * slice_, f1)] += 1
+    assert (owners == 1).all()
+    assert 1 <= chunk <= min(slice_, decode_kernel.F32_MAX_CHUNK)
+    assert smem == decode_kernel.f32_smem_bytes(chunk, 31, cluster, wpt)
+    assert smem <= 232448
+    # A tile holds whole windows: up to 32 rows, or one longer window.
+    assert wpt >= 1 and (wpt * frames <= 32 or wpt == 1)
+    blocks = -(-windows // wpt) * cluster
+    if windows * frames <= 32:
+        assert wpt >= windows and cluster >= 8  # One tile on >= 8 blocks.
+    if windows == 4096:
+        assert blocks >= 132                     # A block on every SM.
+
+
+def test_f32_plan_raises_when_x2_rows_cannot_fit():
+    with pytest.raises(ValueError):
+        decode_kernel.f32_plan(32, 1, 2553, 2000, 132)
