@@ -19,10 +19,19 @@ drives the two main paths once:
   EEG, 4 int16 wavs at 44.1 kHz) -> ``cli.regression_data.main``
   (intensity envelopes by kernel K3) -> TFRecords, held against a CPU
   ingest -> TFExampleData -> fit (K2) -> training -> serve of the
-  held-out trial (K1), whose attention switches at its midpoint.
+  held-out trial (K1), whose attention switches at its midpoint;
 
-Decisions must track the planted switch and served scores must match a
-CPU decode of the same stream with the plain versions.
+  decoding path, at codelab width: 5 seeded TFRecord files of 12000
+  frames -> ``telluride_decoding_torch.cli.decoding.main`` twice (CCA
+  with the streamed fit, K2; linear with the dense fit) -> results.txt,
+  model and decoder_model.json -> the saved CCA decoder's
+  ``test_by_window_means`` over the held-out file (K1 over all of its
+  frames in one launch), once against each speaker.
+
+Decisions must track the planted switch, served scores must match a
+CPU decode of the same stream with the plain versions, and the decoding
+driver's results.txt on the card must match the CPU's on a shorter copy
+of its corpus.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -46,6 +55,7 @@ IN1_CHANNELS, PRE, POST = 69, 0, 36            # 69 x 37 = 2553 columns.
 IN2_PRE, IN2_POST = 15, 15                     # 1 x 31 columns.
 CCA_DIMS = 10
 TRAIN_FILES, TRAIN_FRAMES, STREAM_FRAMES = 4, 12000, 6000
+DECODING_FILES, SHORT_FRAMES = 5, 3000         # cli.decoding corpus.
 FLAGSHIP = (512, 100)                          # Windows x frames.
 # KULeuven CCA preset (telluride_decoding_tpu/cli/regression.py:453-469,
 # :520-525): EEG post context 21 (64 x 22 = 1408 columns), intensity
@@ -59,6 +69,8 @@ K3_TOL = dict(rtol=0, atol=1e-4)
 SERVE_TOL = 1e-4
 INGEST_TOL = 1e-4
 SOSFILT_TOL = 1e-3
+RESULTS_TOL = 1e-3                             # results.txt, card vs CPU.
+DPRIME_REL_TOL = 1e-2
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, data sheet.
 FP32_FLOPS = 67e12                             # fp32 on the CUDA cores, same.
 SERVE_ROWS = 32                                # Frames in a served chunk.
@@ -553,12 +565,13 @@ def write_records(recordings, data_dir):
             os.path.join(data_dir, 'trial_%02d.tfrecords' % i))
 
 
-def brain_data(data_dir, device, in2, frame_rate, contexts, **patterns):
-    """TFExampleData: eeg (input_1) and ``in2`` (input_2), lag contexts
-    (pre, post, in2 pre, in2 post)."""
+def brain_data(data_dir, device, in2, frame_rate, contexts, out='intensity',
+               **patterns):
+    """TFExampleData: eeg (input_1), ``in2`` (input_2) and ``out``
+    (output), lag contexts (pre, post, in2 pre, in2 post)."""
     from telluride_decoding_torch.data.brain_data import TFExampleData
     pre, post, pre2, post2 = contexts
-    return TFExampleData('eeg', 'intensity', frame_rate, pre_context=pre,
+    return TFExampleData('eeg', out, frame_rate, pre_context=pre,
                          post_context=post, in2_fields=in2,
                          in2_pre_context=pre2, in2_post_context=post2,
                          data_dir=data_dir, device=device, **patterns)
@@ -959,6 +972,275 @@ def phase_ingest_slice(torch, device, smi, k3_ms):
     return launches
 
 
+def decoding_corpus(data_dir, files=DECODING_FILES, frames=TRAIN_FRAMES,
+                    short_dir=None, short_frames=SHORT_FRAMES):
+    """The decoding driver's corpus at codelab width: ``files`` seeded
+    recordings of ``frames`` frames as TFRecords (trial_00 ..), the last
+    the test file; with ``short_dir``, a shorter copy there too: the
+    first ``short_frames`` frames of the first two files and of the test
+    file."""
+    train, _ = synthetic_recordings(8, IN1_CHANNELS, files, frames, 100)
+    shutil.rmtree(data_dir, ignore_errors=True)
+    write_records(train, data_dir)
+    if short_dir:
+        from telluride_decoding_torch.data import records
+        shutil.rmtree(short_dir, ignore_errors=True)
+        os.makedirs(short_dir)
+        for i in (0, 1, files - 1):
+            eeg, a1, a2 = (a[:short_frames] for a in train[i])
+            records.convert_data_to_tfrecords(
+                {'eeg': eeg, 'intensity': a1, 'intensity2': a2},
+                os.path.join(short_dir, 'trial_%02d.tfrecords' % i))
+    return 'trial_%02d' % (files - 1)
+
+
+def run_decoding(kind, data_dir, work_dir, device, test_file):
+    """One run of ``cli.decoding.main`` at codelab width (CCA with the
+    streamed fit, or the dense linear fit); returns (results.txt as
+    {name: value}, the StageTimer's report, seconds, model dir)."""
+    import contextlib
+    import io
+    from telluride_decoding_torch.cli import decoding
+    summary_dir = os.path.join(work_dir, kind + '_summary')
+    model_dir = os.path.join(work_dir, kind + '_model')
+    for d in (summary_dir, model_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    argv = ['--tfexample_dir', data_dir, '--input_field', 'eeg',
+            '--output_field', 'intensity', '--attended_field=',
+            '--pre_context', str(PRE), '--post_context', str(POST),
+            '--train_file_pattern', 'allbut',
+            '--validate_file_pattern', test_file,
+            '--test_file_pattern', test_file, '--correlation_frames', '100',
+            '--regularization_lambda', '0.001', '--summary_dir',
+            summary_dir, '--saved_model_dir', model_dir, '--device',
+            str(device), '--dnn_regressor', kind]
+    if kind == 'cca':
+        argv += ['--input2_field', 'intensity', '--input2_pre_context',
+                 str(IN2_PRE), '--input2_post_context', str(IN2_POST),
+                 '--cca_dimensions', str(CCA_DIMS), '--streaming_fit']
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = decoding.main(argv)
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError('cli.decoding.main returned %d' % rc)
+    text = out.getvalue()
+    report = text[text.index('run_decoding_experiment timing:'):].strip()
+    results = {}
+    with open(os.path.join(summary_dir, 'results.txt')) as f:
+        for line in f:
+            if line.startswith('Final_Testing/'):
+                name, value = line.split(': ')
+                results[name[len('Final_Testing/'):]] = float(value)
+    if not all(np.isfinite(v) for v in results.values()):
+        raise AssertionError('%s results.txt has non-finite numbers: %s'
+                             % (kind, results))
+    return results, report, seconds, model_dir
+
+
+def window_accuracy(model_dir, data_dir, device, test_file):
+    """test_by_window_means over the test file with 100-frame windows,
+    once with the attended intensity as input_2 and output, once with
+    the unattended one; returns (share of windows where the attended
+    stream's mean beats the other's, the number of windows, the decoder,
+    the attended dataset)."""
+    from telluride_decoding_torch.decode.infer_decoder import create_decoder
+    decoder = create_decoder(model_dir, reduction='lda', device=device)
+    decoder.load_decoding_model(model_dir)
+    decoder.restore_parameters(os.path.join(model_dir, 'decoder_model.json'))
+    means, datasets = [], []
+    for in2 in ('intensity', 'intensity2'):
+        datasets.append(brain_data(
+            data_dir, device, in2, 100, (PRE, POST, IN2_PRE, IN2_POST),
+            out=in2, test_file_pattern=test_file, final_batch_size=512,
+            shuffle_buffer_size=0).create_dataset('test'))
+        scores, _ = decoder.test_by_window_means(datasets[-1], 100)
+        if not scores.size or not np.all(np.isfinite(scores)):
+            raise AssertionError('test_by_window_means gave %d windows, '
+                                 'finite: %s' % (scores.size,
+                                                 np.all(np.isfinite(scores))))
+        means.append(scores)
+    return (float(np.mean(means[0] > means[1])), means[0].size, decoder,
+            datasets[0])
+
+
+def time_frame_scores(torch, decoder, dataset):
+    """K1 at the driver's evaluation shape: the test split's frames as
+    windows of one frame, single form, with the decoder's folded
+    parameters; call, host and device ms beside the bound and the
+    plain version."""
+    from telluride_decoding_torch.ops.decode_kernel import (
+        fused_cca_decode, fused_cca_decode_reference)
+    in1, in2, _, _ = dataset.all_arrays()
+    keep = (in1.shape[0] // dataset.batch_size) * dataset.batch_size
+    x1 = decoder._tensor(in1[:keep])[:, None, :]
+    x2 = decoder._tensor(in2[:keep])[:, None, :]
+    folded = decoder._pipeline.folded
+    n, f1, f2 = keep, x1.shape[-1], x2.shape[-1]
+    param_bytes = sum(p.numel() * p.element_size() for p in folded)
+    want = fused_cca_decode_reference(folded, x1, x2)
+    err = require_close(torch, 'fused_cca_decode frame_scores W=%d' % n,
+                        fused_cca_decode(folded, x1, x2), want, F32_TOL)
+
+    def call():
+        return fused_cca_decode(folded, x1, x2)
+    ms, plain_ms = interleaved_ms(
+        torch, call, lambda: fused_cca_decode_reference(folded, x1, x2))
+    limit, limited_by = bound(
+        (x1.numel() + x2.numel()) * 4 + param_bytes + n * 4,
+        2 * n * CCA_DIMS * (f1 + f2 + 2))
+    return dict(windows=n, frames=1, f1=f1, f2=f2, dims=CCA_DIMS, ms=ms,
+                plain_ms=plain_ms, host_ms=host_ms(torch, call),
+                device_ms=device_ms(torch, call, F32_SYMBOL),
+                bound_ms=limit, bound_by=limited_by, max_abs_err=err)
+
+
+def fit_seconds(torch, device, data_dir, test_file):
+    """The two fits alone at codelab width, timed on the host with the
+    card synchronised (the files are in the reader's cache by now): the
+    CCA model's streamed fit (K2, moments, solve) and the linear model's
+    dense fit, split into the host's lag-stacked train split
+    (create_dataset) and the fit (copy to the card, moments, ridge
+    solve)."""
+    from telluride_decoding_torch.models.brain_model import (
+        BrainModelLinearRegression)
+    from telluride_decoding_torch.models.cca import BrainModelCCA
+    patterns = dict(train_file_pattern='allbut',
+                    validate_file_pattern=test_file,
+                    test_file_pattern=test_file)
+    data = brain_data(data_dir, device, 'intensity', 100,
+                      (PRE, POST, IN2_PRE, IN2_POST), **patterns)
+    model = BrainModelCCA(data.spec_dataset(), cca_dims=CCA_DIMS,
+                          regularization_lambda=1e-3, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit_streaming(data, 'train')
+    torch.cuda.synchronize()
+    times = {'cca_streamed_fit_s': time.perf_counter() - t0}
+    data = brain_data(data_dir, device, None, 100, (PRE, POST, 0, 0),
+                      **patterns)
+    t0 = time.perf_counter()
+    train = data.create_dataset('train')
+    times['linear_dataset_s'] = time.perf_counter() - t0
+    model = BrainModelLinearRegression(data.spec_dataset(), 1e-3,
+                                       device=device)
+    t0 = time.perf_counter()
+    model.fit(train)
+    torch.cuda.synchronize()
+    times['ridge_fit_s'] = time.perf_counter() - t0
+    times['train_frames'] = train.num_frames
+    return times
+
+
+def compare_results(got, want, what):
+    """results.txt numbers of the card and the CPU; returns the largest
+    absolute difference (d' relative)."""
+    if set(got) != set(want):
+        raise AssertionError('%s: results %s vs %s' % (what, got, want))
+    worst = {'numbers': 0.0, 'dprime': 0.0}
+    for key, value in want.items():
+        if key == 'dprime':
+            worst['dprime'] = max(worst['dprime'],
+                                  abs(got[key] - value) / abs(value))
+        else:
+            worst['numbers'] = max(worst['numbers'], abs(got[key] - value))
+    if worst['numbers'] > RESULTS_TOL or worst['dprime'] > DPRIME_REL_TOL:
+        raise AssertionError('%s: card %s vs CPU %s differ by %s' % (
+            what, got, want, worst))
+    return worst
+
+
+def phase_decoding(torch, device, smi):
+    """The experiment driver at codelab width: a CCA model with the
+    streamed fit (K2) and a linear model with the dense fit, each from
+    TFRecords to results.txt, the model and decoder_model.json; then
+    the saved CCA decoder over the test file by 100-frame window means
+    (K1, one launch a call). Then the card against the CPU: both runs on
+    a shorter copy of the corpus on each, and the card's frame scores
+    against the CPU's plain decode of the same model."""
+    from telluride_decoding_torch.cli import serve
+    start = time.perf_counter()
+    work = os.path.join(BUILD, 'decoding')
+    data_dir = os.path.join(work, 'records')
+    short_dir = os.path.join(work, 'records_short')
+    test_file = decoding_corpus(data_dir, short_dir=short_dir)
+    runs = {}
+    read_launches = reset_launches()
+    for kind in ('cca', 'linear'):
+        runs[kind] = run_decoding(kind, data_dir, work, device, test_file)
+    correct, windows, decoder, attended = window_accuracy(
+        runs['cca'][3], data_dir, device, test_file)
+    launches = read_launches()
+    require_launched(launches, ('lag_stack', 'fused_cca_decode'),
+                     'decoding')
+    for kind, (results, _, _, _) in runs.items():
+        if not results.get('dprime', 0.0) > 1.0:
+            raise AssertionError('%s: dprime %s is not above 1'
+                                 % (kind, results.get('dprime')))
+    if correct <= 0.9:
+        raise AssertionError('the attended stream wins only %.3f of the '
+                             'windows' % correct)
+    # The card's frame scores (K1) against the plain decode on the CPU.
+    cpu_data = brain_data(data_dir, 'cpu', 'intensity', 100,
+                          (PRE, POST, IN2_PRE, IN2_POST),
+                          test_file_pattern=test_file, final_batch_size=512,
+                          shuffle_buffer_size=0)
+    card_scores, _ = decoder.frame_scores(attended)
+    cpu_scores, _ = serve.load_model(runs['cca'][3], 'lda', 'cpu') \
+        .frame_scores(cpu_data.create_dataset('test'))
+    score_err = float(np.max(np.abs(card_scores - cpu_scores)))
+    if card_scores.shape != cpu_scores.shape or score_err > SERVE_TOL:
+        raise AssertionError('frame scores on the card differ from the CPU '
+                             'plain decode by %g' % score_err)
+    k1 = time_frame_scores(torch, decoder, attended)
+    fits = fit_seconds(torch, device, data_dir, test_file)
+    short = {}
+    for kind in ('cca', 'linear'):
+        card, card_report, card_s, _ = run_decoding(
+            kind, short_dir, work + '_card', device, test_file)
+        cpu, cpu_report, cpu_s, _ = run_decoding(
+            kind, short_dir, work + '_cpu', 'cpu', test_file)
+        short[kind] = dict(compare_results(card, cpu, kind + ' short copy'),
+                           card_s=card_s, cpu_s=cpu_s,
+                           reports={'card': card_report, 'CPU': cpu_report})
+    for kind, (results, report, seconds, _) in runs.items():
+        log('phase 8 decoding %s (%s fit) on the card: %.2f s; results %s'
+            % (kind, 'streamed' if kind == 'cca' else 'dense', seconds,
+               json.dumps(results)))
+        for line in report.splitlines()[1:]:
+            log('phase 8 decoding %s stage %s' % (kind, line.strip()))
+    log('phase 8 decoding: test_by_window_means over %s, 100-frame '
+        'windows: the attended stream wins %.3f of %d windows; card frame '
+        'scores within %.2g of the CPU plain decode; launches %s'
+        % (test_file, correct, windows, score_err, launches))
+    log('phase 8 fused_cca_decode float32 frame_scores single W=%d T=1 '
+        '%d + %d D %d: call %.4f ms, host %.4f ms, on the device %s, plain '
+        '%.4f ms, bound %.4f ms (%s), max abs err %.3g'
+        % (k1['windows'], k1['f1'], k1['f2'], k1['dims'], k1['ms'],
+           k1['host_ms'], fmt_ms(k1['device_ms']), k1['plain_ms'],
+           k1['bound_ms'], k1['bound_by'], k1['max_abs_err']))
+    log('phase 8 fits alone (%d train frames): CCA streamed fit %.3f s; '
+        'linear: lag-stacked train split on the host %.3f s, ridge fit '
+        '(copy, moments, solve) %.3f s'
+        % (fits['train_frames'], fits['cca_streamed_fit_s'],
+           fits['linear_dataset_s'], fits['ridge_fit_s']))
+    for kind, t in short.items():
+        log('phase 8 decoding %s short copy (2 x %d train + %d test '
+            'frames): card %.2f s, CPU %.2f s; results.txt numbers within '
+            '%.3g, dprime within %.3g relative'
+            % (kind, SHORT_FRAMES, SHORT_FRAMES, t['card_s'], t['cpu_s'],
+               t['numbers'], t['dprime']))
+        for where, report in t['reports'].items():
+            log('phase 8 decoding %s short copy stages on the %s: %s'
+                % (kind, where, '; '.join(
+                    ' '.join(line.split()[:3])
+                    for line in report.splitlines()[1:])))
+    log('phase 8 decoding: %.1f s in all; %s'
+        % (time.perf_counter() - start, smi))
+    return launches, k1
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -974,14 +1256,16 @@ def main():
     k3 = phase_frontend(torch, device)
     phase_sosfilt(torch, device)
     kuleuven = phase_ingest_slice(torch, device, smi, k3['ms'])
-    launches = {name: codelab[name] + kuleuven[name] for name in kuleuven}
+    decoding, k1_frame_scores = phase_decoding(torch, device, smi)
+    launches = {name: codelab[name] + kuleuven[name] + decoding[name]
+                for name in kuleuven}
     common = dict(route='cuda', library_ms=None)
     kernels = [
         dict(name='fused_cca_decode',
              source='telluride_decoding_torch/csrc/decode_kernel.cu',
              replaces='telluride_decoding_tpu/ops/decode_kernel.py:123',
              launches=launches['fused_cca_decode'], hmma_in_sass=hmma,
-             **k1, **common),
+             f32_frame_scores=k1_frame_scores, **k1, **common),
         dict(name='lag_stack',
              source='telluride_decoding_torch/csrc/lagstack.cu',
              replaces='telluride_decoding_tpu/ops/lagstack.py:93',

@@ -9,11 +9,10 @@ stacked corpus. The file list is shuffled with
 ``np.random.RandomState(shuffle_seed)`` exactly as in the JAX package,
 so both give the same file order and the same ``allbut_NN`` subsets.
 
-Ported: BrainData (field specs through the Preprocessor, allbut
-patterns, load_arrays, iter_file_arrays, streaming_moments),
-TestBrainData, TFExampleData with its byte-budget LRU, and
-create_brain_dataset. The minibatch iterator (create_dataset and
-BrainDataset, with mixup and mismatch) is not ported yet.
+The minibatch iterator (``create_dataset``, ``BrainDataset``) is host
+numpy, as in the JAX package, and every shuffle, mixup and mismatch draw
+comes from that same generator in the same order, so both packages give
+the same batches bit for bit.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ from __future__ import annotations
 import os
 import re
 from collections import OrderedDict
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -110,12 +109,17 @@ class BrainData:
                  in2_post_context: int = 0,
                  input_offset: int = 0,
                  attended_field: Optional[str] = None,
+                 initial_batch_size: int = 1000000,
+                 final_batch_size: int = 1000,
+                 repeat_count: int = 1,
+                 shuffle_buffer_size: int = 1000,
                  data_dir: Optional[str] = None,
                  data_pattern: str = '',
                  train_file_pattern: str = '',
                  validate_file_pattern: str = '',
                  test_file_pattern: str = '',
                  shuffle_seed: int = 42,
+                 reference_protocol: bool = False,
                  device='cuda'):
         if not in_fields:
             raise ValueError('Must specify at least one input field.')
@@ -146,14 +150,23 @@ class BrainData:
         self.in2_post_context = in2_post_context
         self.input_offset = input_offset
         self.attended_field = attended_field
+        self.initial_batch_size = initial_batch_size
+        self.final_batch_size = final_batch_size
+        self.repeat_count = repeat_count
+        self.shuffle_buffer_size = shuffle_buffer_size
         self.data_dir = data_dir
         self.data_pattern = data_pattern
         self.train_file_pattern = train_file_pattern or ''
         self.validate_file_pattern = validate_file_pattern or ''
         self.test_file_pattern = test_file_pattern or ''
+        # The reference's data protocol: every split is shuffled (unless
+        # shuffle_buffer_size is 0), cut to whole final batches and
+        # scored as a mean of per-batch metrics
+        # (telluride_decoding_tpu/data/brain_data.py:198-207).
+        self.reference_protocol = bool(reference_protocol)
         self.features: Dict[str, records.FeatureSpec] = {}
         # Seeded file-list shuffle, as in the JAX package; None asks for
-        # fresh randomness.
+        # fresh randomness. The minibatch iterator draws from it too.
         self._rng = np.random.RandomState(shuffle_seed)
         self._cached_file_names: List[str] = []
         self.all_files()
@@ -286,19 +299,34 @@ class BrainData:
                                np.ndarray, np.ndarray]:
         """This mode's files as concatenated context-stacked arrays;
         context is applied per file so windows never span files."""
+        parts = self._load_parts(mode, temporal_context)
+        return tuple(np.concatenate([p[i] for p in parts], axis=0)
+                     for i in range(4))
+
+    def _load_parts(self, mode: str, temporal_context: bool = True
+                    ) -> List[Tuple[np.ndarray, ...]]:
+        """Per-file context-stacked streams, in file order."""
         parts = []
         for filename in self._files_or_raise(mode):
             streams = self.file_arrays(filename)
             if temporal_context and self._needs_context():
                 streams = self._add_context(*streams)
             parts.append(streams)
-        return tuple(np.concatenate([p[i] for p in parts], axis=0)
-                     for i in range(4))
+        return parts
+
+    # The reference's TFRecord path windows only on a nonzero pre/post
+    # context and ignores a lone input_offset; its in-memory test data
+    # honors the offset. Under the reference protocol TFExampleData
+    # reproduces that (telluride_decoding_tpu/data/brain_data.py:374-392).
+    _reference_offset_quirk = False
 
     def _needs_context(self) -> bool:
-        return bool(self.in1_pre_context or self.in1_post_context
-                    or self.in2_pre_context or self.in2_post_context
-                    or self.input_offset)
+        has_context = bool(self.in1_pre_context or self.in1_post_context
+                           or self.in2_pre_context
+                           or self.in2_post_context)
+        if self.reference_protocol and self._reference_offset_quirk:
+            return has_context
+        return has_context or bool(self.input_offset)
 
     # -- bounded-memory streaming -------------------------------------------
 
@@ -366,6 +394,18 @@ class BrainData:
             total = stats if total is None else total + stats
         return total
 
+    def spec_dataset(self) -> 'BrainDataset':
+        """Zero-row BrainDataset carrying only this source's element
+        widths, for sizing a model and its metadata without reading the
+        corpus."""
+        def z(width):
+            return np.zeros((0, width), np.float32)
+        return BrainDataset(z(self.input_fields_width(1)),
+                            z(self.input_fields_width(2)),
+                            z(self.output_field_width()), z(1),
+                            batch_size=self.final_batch_size,
+                            mode='train', shuffle=False)
+
     def _files_or_raise(self, mode: str) -> List[str]:
         filename_list = self.filter_file_names(mode)
         if not filename_list:
@@ -373,6 +413,33 @@ class BrainData:
                              'directory %s: %s' %
                              (mode, self.data_dir, self.all_files()))
         return filename_list
+
+    # -- batching / dataset iterator ----------------------------------------
+
+    def create_dataset(self, mode: str = 'train',
+                       temporal_context: bool = True,
+                       mixup_batch: bool = False,
+                       mismatch_batch: bool = False) -> 'BrainDataset':
+        """An iterable of ({'input_1', 'input_2', 'attended_speaker'},
+        output) minibatches over this mode's files."""
+        if self.reference_protocol:
+            # The reference interleaves the files' frames round-robin
+            # before batching; with drop-remainder that decides which
+            # frames survive.
+            in1, in2, out, attended = _interleave_parts(
+                self._load_parts(mode, temporal_context))
+        else:
+            in1, in2, out, attended = self.load_arrays(mode,
+                                                       temporal_context)
+        return BrainDataset(in1, in2, out, attended,
+                            batch_size=self.final_batch_size,
+                            mode=mode,
+                            repeat_count=self.repeat_count,
+                            shuffle=self.shuffle_buffer_size > 0,
+                            mixup_batch=mixup_batch,
+                            mismatch_batch=mismatch_batch,
+                            rng=self._rng,
+                            reference_protocol=self.reference_protocol)
 
     # -- widths --------------------------------------------------------------
 
@@ -406,6 +473,150 @@ class BrainData:
         if pp.channel_numbers is not None:
             return len(pp.channel_numbers)
         return width
+
+    def output_field_width(self) -> int:
+        if self.out_field == 'ones':
+            return 1
+        if self.out_field not in self.features:
+            raise ValueError('Could not find output_field **%s** in %s' %
+                             (self.out_field, list(self.features.keys())))
+        return self._spec_width(self._out_spec,
+                                self.features[self.out_field].shape[0])
+
+
+def _interleave_parts(parts: List[Tuple[np.ndarray, ...]]
+                      ) -> Tuple[np.ndarray, ...]:
+    """Round-robin frame interleave across per-file streams: frame t of
+    file f lands at the position sorted by (t, f), and files that run
+    out drop out of the rotation (tf.data interleave, block_length 1)."""
+    if len(parts) == 1:
+        return parts[0]
+    t_idx = np.concatenate([np.arange(p[0].shape[0]) for p in parts])
+    f_idx = np.concatenate([np.full(p[0].shape[0], f)
+                            for f, p in enumerate(parts)])
+    order = np.lexsort((f_idx, t_idx))
+    return tuple(
+        np.concatenate([p[i] for p in parts], axis=0)[order]
+        for i in range(4))
+
+
+class BrainDataset:
+    """An iterable of minibatches over preassembled host arrays
+    (telluride_decoding_tpu/data/brain_data.py:592-725).
+
+    Iterating yields ({'input_1', 'input_2', 'attended_speaker'}, output)
+    numpy minibatches with drop-remainder semantics; ``all_arrays`` gives
+    the whole arrays for one-shot fits and decodes. Every random draw
+    (the per-epoch order, mixup and mismatch permutations, and the
+    reference protocol's one shuffle at construction) comes from ``rng``
+    in the JAX package's order.
+    """
+
+    def __init__(self, in1, in2, out, attended, *, batch_size: int,
+                 mode: str, repeat_count: int = 1, shuffle: bool = True,
+                 mixup_batch: bool = False, mismatch_batch: bool = False,
+                 rng: Optional[np.random.RandomState] = None,
+                 reference_protocol: bool = False):
+        self._batch_size = batch_size
+        self._mode = mode
+        self._repeat_count = repeat_count if mode == 'train' else 1
+        self._shuffle = shuffle and mode != 'program_test'
+        self._mixup = mixup_batch
+        self._mismatch = mismatch_batch
+        self._rng = rng if rng is not None else np.random.RandomState(42)
+        # Reference protocol: shuffle (unless off) and drop the frames
+        # past floor(N/B)*B once, here, so fits, evaluations and the
+        # decoder's training all see the same stream; iteration still
+        # re-permutes within the kept frames each epoch.
+        self.reference_batch_size = None
+        if reference_protocol:
+            n = in1.shape[0]
+            keep = (n // batch_size) * batch_size
+            if keep == 0 and n > 0:
+                import warnings
+                warnings.warn(
+                    'reference_protocol: %d frames < batch_size %d; the '
+                    'reference would produce an EMPTY %s dataset '
+                    '(drop_remainder). Keeping all frames instead.' %
+                    (n, batch_size, mode))
+            else:
+                order = (self._rng.permutation(n) if self._shuffle
+                         else np.arange(n))[:keep]
+                in1, in2 = in1[order], in2[order]
+                out, attended = out[order], attended[order]
+                self.reference_batch_size = batch_size
+        self._in1 = in1
+        self._in2 = in2
+        self._out = out
+        self._attended = attended
+
+    @property
+    def num_frames(self) -> int:
+        return self._in1.shape[0]
+
+    @property
+    def batch_size(self) -> int:
+        """Minibatch size of the iterator (drop-remainder)."""
+        return self._batch_size
+
+    @property
+    def has_batch_transforms(self) -> bool:
+        """True when iteration applies mixup or mismatch, so the raw
+        arrays differ from the iterated stream."""
+        return self._mixup or self._mismatch
+
+    def all_arrays(self):
+        return self._in1, self._in2, self._out, self._attended
+
+    def iter_one_epoch(self):
+        """One epoch of minibatches regardless of repeat_count."""
+        saved = self._repeat_count
+        self._repeat_count = 1
+        try:
+            yield from self
+        finally:
+            self._repeat_count = saved
+
+    @property
+    def element_spec(self):
+        return ({'input_1': self._in1.shape[1:],
+                 'input_2': self._in2.shape[1:],
+                 'attended_speaker': self._attended.shape[1:]},
+                self._out.shape[1:])
+
+    def __iter__(self) -> Iterator[Tuple[Dict[str, np.ndarray], np.ndarray]]:
+        n = self.num_frames
+        b = self._batch_size
+        for _ in range(self._repeat_count):
+            order = (self._rng.permutation(n) if self._shuffle
+                     else np.arange(n))
+            for start in range(0, n - b + 1, b):
+                idx = order[start:start + b]
+                x = self._in1[idx]
+                x2 = self._in2[idx]
+                y = self._out[idx]
+                a = self._attended[idx]
+                if self._mismatch:
+                    x, x2, y, a = self._mismatch_transform(x, x2, y, a)
+                if self._mixup:
+                    x2 = x2[self._rng.permutation(b)]
+                    y = y[self._rng.permutation(b)]
+                yield ({'input_1': x, 'input_2': x2,
+                        'attended_speaker': a}, y)
+
+    def _mismatch_transform(self, x, x2, y, a):
+        """Match-mismatch transform: even rows keep their pairing (label
+        0), odd rows get shuffled input_2 (label 1); the two halves are
+        concatenated."""
+        even_x2 = x2[0::2]
+        odd_x2 = x2[1::2][self._rng.permutation(x2[1::2].shape[0])]
+        new_x2 = np.concatenate([even_x2, odd_x2], axis=0)
+        new_y = np.concatenate([np.zeros((even_x2.shape[0], 1), np.float32),
+                                np.ones((odd_x2.shape[0], 1), np.float32)],
+                               axis=0)
+        new_x = np.concatenate([x[0::2], x[1::2]], axis=0)
+        new_a = np.concatenate([a[0::2], a[1::2]], axis=0)
+        return new_x, new_x2, new_y, new_a
 
 
 class TestBrainData(BrainData):
@@ -458,10 +669,16 @@ class TestBrainData(BrainData):
             streams = self._add_context(*streams)
         return streams
 
+    def _load_parts(self, mode: str, temporal_context: bool = True):
+        # One in-memory stream: nothing to interleave.
+        return [self.load_arrays(mode, temporal_context)]
+
 
 class TFExampleData(BrainData):
     """TFRecord-file dataset (reference TFExampleData,
     brain_data.py:645-927), decoded with the port's records codec."""
+
+    _reference_offset_quirk = True
 
     # {filename: (mtime, arrays, nbytes)} LRU, most-recent last:
     # invalidated when the file changes, evicted by a byte budget
@@ -516,6 +733,21 @@ class TFExampleData(BrainData):
         if cache:
             TFExampleData._cache_put(filename, mtime, arrays)
         return self._select_fields(arrays)
+
+    def estimated_stacked_bytes(self, mode: str = 'train') -> int:
+        """Rough float32 size of this mode's lag-stacked corpus, from
+        the files' sizes over the raw record width (no decode). Proto
+        overhead makes it a slight overestimate, the safe side for the
+        driver's choice of the streamed fit."""
+        raw_width = sum(int(np.prod(s.shape)) or 1
+                        for s in self.features.values())
+        stacked_width = (self.input_fields_width(1) +
+                         self.input_fields_width(2) +
+                         self.output_field_width() + 1)
+        total_bytes = sum(os.path.getsize(f)
+                          for f in self.filter_file_names(mode))
+        est_frames = total_bytes // max(raw_width * 4, 1)
+        return int(est_frames * stacked_width * 4)
 
 
 def create_brain_dataset(data_type: str, in_fields, out_field: str,

@@ -1,12 +1,15 @@
 """Attention decoding: correlation state + reductions + LDA (port of
-decode/infer_decoder.py:38-717).
+decode/infer_decoder.py:38-742).
 
 The per-window serving path of a CCA model with the LDA reduction
 (``infer_one``/``infer_pair``) is one launch of kernel K1 per call:
 rotate both inputs, form the normalized correlation, project through the
 LDA, one score per frame (windows of T = 1). ``infer_pair`` scores both
-audio streams against one read of the brain window. The other reductions
-run as plain torch, as ``_reduce`` does in the JAX package.
+audio streams against one read of the brain window. ``frame_scores``
+scores a whole test split in one ``infer_one`` call, so its K1 launch
+covers every frame of the split. The other reductions, and the linear
+regression decoder, run as plain torch, as ``_reduce`` does in the JAX
+package.
 
 ``decoder_model.json`` stays wire-compatible with the JAX package and the
 reference: the same ModelParams namedtuple structure, complex arrays
@@ -18,12 +21,13 @@ from __future__ import annotations
 import collections
 import json
 import os
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from telluride_decoding_torch import device as device_policy
+from telluride_decoding_torch.decode import result_store
 from telluride_decoding_torch.decode.metrics import (average_data,
                                                      calculate_dprime)
 from telluride_decoding_torch.ops.decode_kernel import (FoldedDecode,
@@ -98,6 +102,8 @@ class Decoder:
         self._device = device_policy.resolve(device)
         self._decoding_model = decoding_model
         self._decoding_model_params: Dict[str, Any] = {}
+        self._model_inputs: Dict[str, Any] = {}
+        self._model_output: list = []
         self._reduction = reduction
         self._lda: Optional[scaled_lda.ScaledLinearDiscriminantAnalysis] = \
             None
@@ -162,6 +168,14 @@ class Decoder:
         # parameters; new values must rebuild it.
         self._pipeline = None
 
+    @property
+    def model_inputs(self) -> Dict[str, Any]:
+        return self._model_inputs
+
+    @property
+    def model_output(self) -> list:
+        return self._model_output
+
     def reset_correlation_statistics(self):
         self._count = 0
         self._sum_x = 0.0
@@ -187,8 +201,9 @@ class Decoder:
         self.model_params = ModelParamsTuple(**loaded)
 
     def load_decoding_model(self, saved_model_dir: str):
-        """Loads a saved model (model.json + weights.npz) and the
-        experiment flags embedded in it (the lag contexts serving needs)."""
+        """Loads a saved model (model.json + weights.npz), the experiment
+        flags embedded in it (the lag contexts serving needs) and its
+        input and output widths."""
         from telluride_decoding_torch.models.brain_model import load_model
         if not saved_model_dir or not isinstance(saved_model_dir, str):
             raise TypeError('Must provide a file name (string) to '
@@ -197,6 +212,10 @@ class Decoder:
         model = self._decoding_model
         if model.telluride_metadata:
             self._decoding_model_params = json.loads(model.telluride_metadata)
+        if model.telluride_inputs:
+            self._model_inputs = json.loads(model.telluride_inputs)
+        if model.telluride_output:
+            self._model_output = json.loads(model.telluride_output)
         self._pipeline = None
 
     # -- correlation statistics ------------------------------------------------
@@ -365,6 +384,143 @@ class Decoder:
         return float(calculate_dprime(predictions[labels == 1, 0],
                                       predictions[labels == 2, 0]))
 
+    def reduce_with_lda(self, d1) -> np.ndarray:
+        if self._lda is None:
+            raise ValueError('Must compute the LDA model before reducing '
+                             'data.')
+        if not isinstance(d1, np.ndarray):
+            raise TypeError('Input data must be an numpy array, not %s.' %
+                            type(d1))
+        return self._lda.transform(d1)
+
+    # -- evaluation ---------------------------------------------------------------
+
+    def test_all(self, exp_data) -> Tuple[np.ndarray, np.ndarray]:
+        """Decodes a whole dataset; returns (likelihoods, labels)."""
+        predictions = result_store.NumpyStore(name='test_all predictions')
+        labels = result_store.NumpyStore(name='test_all labels')
+        for input_dict, output in exp_data:
+            predictions.add_data(self.infer_one(input_dict, output))
+            labels.add_data(np.asarray(input_dict['attended_speaker']))
+        return predictions.all_data, labels.all_data
+
+    def test_by_window(self, dataset, window_size: int
+                       ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Yields (inference, label) windows of window_size frames,
+        advancing by window_size // 2, at least 1 (at window_size 1 the
+        reference's zero step would yield one window forever)."""
+        storage = result_store.TwoResultStore(
+            window_width=window_size,
+            window_step=max(window_size // 2, 1))
+        for input_dict, output in dataset:
+            infer_results = self.infer_one(input_dict, output)
+            storage.add_data(infer_results,
+                             np.asarray(input_dict['attended_speaker']))
+            for r1, r2 in storage.next_window():
+                yield r1, r2
+
+    def frame_scores(self, dataset) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-frame scores and labels of an in-order dataset, the
+        window-size-independent half of test_by_window_means
+        (telluride_decoding_tpu/decode/infer_decoder.py:548-594).
+
+        A BrainDataset without batch transforms decodes in one
+        ``infer_one`` call over its stored arrays, cut to whole
+        minibatches as its iterator would; any other dataset decodes
+        batch by batch.
+        """
+        from telluride_decoding_torch.data.brain_data import BrainDataset
+        if isinstance(dataset, BrainDataset) and \
+                not dataset.has_batch_transforms:
+            in1, in2, out, attended = dataset.all_arrays()
+            batch = dataset.batch_size
+            if batch:
+                keep = (in1.shape[0] // batch) * batch
+                in1, in2 = in1[:keep], in2[:keep]
+                out, attended = out[:keep], attended[:keep]
+            scores = self.infer_one({'input_1': in1, 'input_2': in2}, out)
+            labels = np.asarray(attended)
+        else:
+            scores_parts, label_parts = [], []
+            for input_dict, output in dataset:
+                scores_parts.append(self.infer_one(input_dict, output))
+                label_parts.append(
+                    np.asarray(input_dict['attended_speaker']))
+            if not scores_parts:
+                return np.zeros((0,)), np.zeros((0,))
+            scores = np.concatenate(scores_parts)
+            labels = np.concatenate(label_parts)
+        scores = np.asarray(scores)
+        if scores.ndim > 1 and scores.shape[-1] > 1:
+            # reduction='all': a window's statistic is the mean over its
+            # frames and dims, so averaging the dims first is exact.
+            scores = scores.mean(axis=-1)
+        scores = np.reshape(scores, (-1,))
+        labels = np.reshape(np.asarray(labels)[:, 0] if labels.ndim > 1
+                            else labels, (-1,))
+        return scores, labels
+
+    @staticmethod
+    def window_means(scores: np.ndarray, labels: np.ndarray,
+                     window_size: int) -> Tuple[np.ndarray, np.ndarray]:
+        """50%-overlap window means over precomputed frame scores."""
+        step = max(window_size // 2, 1)
+        num_windows = max((scores.shape[0] - window_size) // step + 1, 0)
+        if num_windows <= 0:
+            return np.zeros((0,)), np.zeros((0,))
+        csum_s = np.concatenate([[0.0], np.cumsum(scores)])
+        csum_l = np.concatenate([[0.0], np.cumsum(labels)])
+        starts = np.arange(num_windows) * step
+        mean_scores = (csum_s[starts + window_size] -
+                       csum_s[starts]) / window_size
+        mean_labels = (csum_l[starts + window_size] -
+                       csum_l[starts]) / window_size
+        return mean_scores, mean_labels
+
+    def test_by_window_means(self, dataset, window_size: int
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-window mean scores and labels of an in-order dataset: the
+        batched equivalent of averaging each window of test_by_window."""
+        scores, labels = self.frame_scores(dataset)
+        return self.window_means(scores, labels, window_size)
+
+    def check_model_and_data(self, actual_dataset):
+        """Validates a dataset's widths against the loaded model's."""
+        if not self.model_inputs or not self.model_output:
+            raise ValueError('Model has not been initialized yet. Use '
+                             'load_model first')
+        for actual_input_dict, actual_output in actual_dataset:
+            for key, spec in self.model_inputs.items():
+                if key not in actual_input_dict:
+                    raise TypeError('Can\'t find needed key %s in '
+                                    'input_data (%s)' %
+                                    (key, list(actual_input_dict.keys())))
+                if actual_input_dict[key].shape[1] != spec[1]:
+                    raise TypeError('Data for %s has the wrong shape, '
+                                    'expected %s, got %s' %
+                                    (key, spec,
+                                     actual_input_dict[key].shape))
+            if actual_output.shape[1] != self.model_output[1]:
+                raise TypeError('Output data has the wrong shape, expected '
+                                '%s, got %s' % (self.model_output,
+                                                actual_output.shape))
+            break
+
+
+class LinearRegressionDecoder(Decoder):
+    """Decoder pairing ground truth with regression predictions."""
+
+    def decode_one(self, input_dict, ground_truth):
+        with torch.no_grad():
+            predictions = self._decoding_model(
+                {k: v for k, v in input_dict.items()
+                 if k in ('input_1', 'input_2')}).cpu().numpy()
+        return np.asarray(ground_truth), predictions
+
+    def _decode_tensors(self, input_dict, ground_truth):
+        return ground_truth, self._decoding_model(input_dict)
+
+
 class CCADecoder(Decoder):
     """Decoder splitting CCA model output into its two rotated halves."""
 
@@ -397,27 +553,55 @@ def create_decoder(model_tag: str, reduction: str = 'lda', model=None, *,
                    device) -> Decoder:
     """The Decoder subclass for a model directory or tag.
 
-    A model directory's model.json decides; a bare tag is sniffed by
-    name. Only the CCA decoder is ported: linear-regression models and
-    reference SavedModel directories raise.
+    A model directory's model.json decides (a CCA class gets the CCA
+    decoder, any other the linear one); a bare tag is sniffed by name.
+    Reference SavedModel directories raise: their reader is not ported.
     """
     meta_path = os.path.join(model_tag, 'model.json')
     if os.path.isfile(meta_path):
         with open(meta_path) as f:
             model_class = json.load(f).get('model_class', '')
-        if model_class == 'BrainModelCCA':
+        if 'CCA' in model_class.upper():
             return CCADecoder(model, reduction=reduction, device=device)
-        raise ValueError('Model class %s has no ported decoder yet (the '
-                         'port has CCADecoder for BrainModelCCA only).'
-                         % model_class)
+        if model_class:
+            return LinearRegressionDecoder(model, reduction=reduction,
+                                           device=device)
     if os.path.isfile(os.path.join(model_tag, 'saved_model.pb')):
         raise ValueError('Reference SavedModel directories are not ported '
                          'yet: %s.' % model_tag)
     tag = model_tag.lower()
     if 'linear' in tag or 'fullyconnected' in tag:
-        raise ValueError('LinearRegressionDecoder is not ported yet (tag '
-                         '%s).' % model_tag)
+        return LinearRegressionDecoder(model, reduction=reduction,
+                                       device=device)
     if 'cca' in tag:
         return CCADecoder(model, reduction=reduction, device=device)
     raise ValueError('Couldn\'t determine model type for tag %s.' %
                      model_tag)
+
+
+def create_dataset(tfrecord_file: str, params: Dict[str, Any],
+                   audio_label: str, frame_rate: int = 100,
+                   mode: str = 'test', mixup_batch: bool = False, *,
+                   device):
+    """A two-speaker test dataset of one TFRecord file: ``audio_label``
+    as input_2 and output, in stored order, batches of 200
+    (telluride_decoding_tpu/decode/infer_decoder.py:720-742)."""
+    from telluride_decoding_torch.data import brain_data
+    tf_dir, tf_file = os.path.split(tfrecord_file)
+    exp_brain_data = brain_data.TFExampleData(
+        params['input_field'],
+        audio_label,
+        frame_rate,
+        pre_context=params['pre_context'],
+        post_context=params['post_context'],
+        in2_fields=audio_label,
+        in2_pre_context=params['input2_pre_context'],
+        in2_post_context=params['input2_post_context'],
+        attended_field='attended_speaker',
+        final_batch_size=200,
+        repeat_count=1,
+        shuffle_buffer_size=0,
+        data_dir=tf_dir,
+        data_pattern=tf_file,
+        device=device)
+    return exp_brain_data.create_dataset(mode, mixup_batch=mixup_batch)

@@ -1,1 +1,1 @@
-"""Brain models; only the deterministic CCA model is ported so far."""
+"""Brain models: the deterministic linear-regression and CCA models."""

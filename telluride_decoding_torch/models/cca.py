@@ -28,10 +28,16 @@ class BrainModelCCA(BrainModel):
     metric_names = ('cca_pearson_correlation_first',)
     param_names = ('mean1', 'mean2', 'rot1', 'rot2')
 
-    def __init__(self, cca_dims: int = 5, regularization_lambda: float = 0.0,
+    def __init__(self, input_dataset=None, cca_dims: int = 5,
+                 regularization_lambda: float = 0.0,
+                 tensorboard_dir: Optional[str] = None,
                  input1_width: Optional[int] = None,
                  input2_width: Optional[int] = None, *, device):
-        super().__init__(device)
+        super().__init__(device, tensorboard_dir)
+        if input_dataset is not None:
+            spec_in, _ = input_dataset.element_spec
+            input1_width = spec_in['input_1'][-1]
+            input2_width = spec_in['input_2'][-1]
         if input1_width is not None and input1_width <= 1:
             raise ValueError('Input 1 feature width (%d) should not be <= 1.'
                              % input1_width)
@@ -83,10 +89,12 @@ class BrainModelCCA(BrainModel):
         r2 = rotate(input_dict['input_2'], self.mean2, self.rot2)
         return torch.cat([r1, r2], dim=1)
 
-    def fit(self, dataset) -> dict:
-        """Fit from an iterable of (input_dict, output) minibatches of
-        lag-stacked inputs: one covariance pass + whitening + SVD."""
-        in1, in2, _ = dataset_arrays(dataset)
+    def fit(self, dataset, epochs: int = 1, **kwargs) -> dict:
+        """Fit from a BrainDataset (its whole arrays) or an iterable of
+        (input_dict, output) minibatches of lag-stacked inputs: one
+        covariance pass + whitening + SVD."""
+        del epochs, kwargs  # Deterministic: one covariance pass + SVD.
+        in1, in2, _, _ = dataset_arrays(dataset)
         self._note_widths(in1.shape[1], in2.shape[1])
         solution = cca_solver.calculate_cca_parameters(
             torch.as_tensor(in1, device=self.device),

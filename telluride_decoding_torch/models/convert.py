@@ -2,9 +2,10 @@
 
 The JAX package saves a model's params pytree flattened into
 ``weights.npz``, keyed by ``_flat_key`` (telluride_decoding_tpu/models/
-brain_model.py:66); for the CCA model the keys are mean1, mean2, rot1 and
-rot2. The port reads and writes the same file, so this is the one place
-that turns such a flat dict into the port's module.
+brain_model.py:66): mean1, mean2, rot1 and rot2 for the CCA model, w and
+b for the linear regression. The port reads and writes the same file, so
+this is the one place that turns such a flat dict into the port's
+module.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from telluride_decoding_torch.models.brain_model import (
+    BrainModelLinearRegression)
 from telluride_decoding_torch.models.cca import BrainModelCCA
 
 
@@ -39,4 +42,24 @@ def cca_params_from_numpy(flat: Dict[str, np.ndarray], device,
             raise ValueError('Inconsistent CCA weights: %s.'
                              % {k: tuple(np.shape(v))
                                 for k, v in flat.items()})
+    return model
+
+
+def linear_params_from_numpy(flat: Dict[str, np.ndarray], device,
+                             config: Optional[dict] = None
+                             ) -> BrainModelLinearRegression:
+    """BrainModelLinearRegression on ``device`` holding the flat dict's
+    weights (w [Dx, Dy], b [Dy]); without ``config`` the widths are read
+    off w."""
+    if config is None:
+        w = np.asarray(flat['w'])
+        config = {'regularization_lambda': 0.0,
+                  'input_width': int(w.shape[0]),
+                  'output_width': int(w.shape[1])}
+    model = BrainModelLinearRegression(**config, device=device)
+    model._restore_params(flat)
+    if flat and (model.w.dim() != 2 or
+                 tuple(model.b.shape) != (model.w.shape[1],)):
+        raise ValueError('Inconsistent linear weights: %s.'
+                         % {k: tuple(np.shape(v)) for k, v in flat.items()})
     return model

@@ -1,1 +1,1 @@
-"""Deterministic solvers: CCA and scaled LDA."""
+"""Deterministic solvers: ridge, CCA and scaled LDA."""

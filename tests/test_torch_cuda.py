@@ -276,3 +276,58 @@ def test_compute_intensity_routes_to_kernel_and_keeps_stream_state(cuda):
     np.testing.assert_allclose(card.compute_intensity(second),
                                cpu.compute_intensity(second), atol=1e-6)
     assert fused_frontend.fused_envelope_lagstack.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_fused_cca_decode_f32_frame_scores_shape(cuda):
+    """The decoding driver's evaluation call: a whole test split of
+    11776 frames (12000 cut to whole 512-frame batches) scored as
+    windows of one frame, single form, 2553 + 31 columns, D 10."""
+    rng = np.random.RandomState(11776)
+    folded = _folded(cuda, rng, 2553, 31, 10)
+    x1, x2, _ = _f32_windows(cuda, 11776, 11776, 1, 2553)
+    before = decode_kernel.fused_cca_decode.launches
+    got = decode_kernel.fused_cca_decode(folded, x1, x2)
+    assert decode_kernel.fused_cca_decode.launches == before + 1
+    torch.testing.assert_close(
+        got, decode_kernel.fused_cca_decode_reference(folded, x1, x2),
+        **F32_TOL)
+
+
+@pytest.mark.cuda
+def test_frame_scores_on_card_match_cpu(cuda):
+    """Decoder.frame_scores of one CCA + LDA decoder on the card (one
+    K1 launch over the split) and on the CPU (the plain decode), at a
+    small width, on a BrainDataset and on its batches."""
+    from telluride_decoding_torch.data.brain_data import BrainDataset
+    from telluride_decoding_torch.decode.infer_decoder import CCADecoder
+    from telluride_decoding_torch.models import convert
+    rng = np.random.RandomState(5)
+    f1, f2, d, n = 40, 5, 3, 1000
+    flat = {'mean1': rng.randn(1, f1), 'mean2': rng.randn(1, f2),
+            'rot1': rng.randn(f1, d) * 0.1, 'rot2': rng.randn(f2, d) * 0.3}
+    x1 = rng.randn(n, f1).astype(np.float32)
+    x2 = (x1[:, :f2] + rng.randn(n, f2)).astype(np.float32)
+    out = np.zeros((n, 1), np.float32)
+
+    def batches(x2_part):
+        return [({'input_1': x1[i:i + 100], 'input_2': x2_part[i:i + 100]},
+                 out[i:i + 100]) for i in range(0, n, 100)]
+    cpu = CCADecoder(convert.cca_params_from_numpy(flat, 'cpu'),
+                     reduction='lda', device='cpu')
+    cpu.train(batches(x2[::-1].copy()), batches(x2), window_size=10)
+    card = CCADecoder(convert.cca_params_from_numpy(flat, cuda),
+                      reduction='lda', device=cuda)
+    card.model_params = cpu.model_params
+    dataset = BrainDataset(x1, x2, out, out, batch_size=64, mode='test',
+                           shuffle=False)
+    want = cpu.frame_scores(dataset)
+    before = decode_kernel.fused_cca_decode.launches
+    got = card.frame_scores(dataset)
+    assert decode_kernel.fused_cca_decode.launches == before + 1
+    assert got[0].shape == (960,)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(got[1], want[1])
+    got_batches = card.frame_scores(list(dataset))
+    np.testing.assert_allclose(got_batches[0], want[0], rtol=1e-4,
+                               atol=1e-4)

@@ -200,12 +200,24 @@ def test_weights_convert_from_flat_numpy(rng):
 
 
 def test_create_decoder_refuses_unported_models(tmp_path):
+    """Linear-regression dirs and tags now get the linear decoder; a
+    reference SavedModel directory (its reader is not ported) and an
+    unknown tag still raise."""
     meta = tmp_path / 'model.json'
     meta.write_text('{"model_class": "BrainModelLinearRegression"}')
+    assert isinstance(infer_decoder.create_decoder(str(tmp_path),
+                                                   device='cpu'),
+                      infer_decoder.LinearRegressionDecoder)
+    assert isinstance(infer_decoder.create_decoder('my_linear_model',
+                                                   device='cpu'),
+                      infer_decoder.LinearRegressionDecoder)
+    saved = tmp_path / 'reference_dir'
+    saved.mkdir()
+    (saved / 'saved_model.pb').write_bytes(b'')
     with pytest.raises(ValueError):
-        infer_decoder.create_decoder(str(tmp_path), device='cpu')
+        infer_decoder.create_decoder(str(saved), device='cpu')
     with pytest.raises(ValueError):
-        infer_decoder.create_decoder('my_linear_model', device='cpu')
+        infer_decoder.create_decoder('my_model', device='cpu')
     assert isinstance(infer_decoder.create_decoder('my_cca', device='cpu'),
                       infer_decoder.CCADecoder)
 
@@ -215,3 +227,151 @@ def test_cuda_device_without_card_raises():
         pytest.skip('a card is present')
     with pytest.raises(RuntimeError):
         infer_decoder.CCADecoder(None, reduction='lda', device='cuda')
+
+
+# -- the decoder's evaluation helpers ------------------------------------
+
+EVAL_TOL = dict(rtol=1e-5, atol=1e-5)
+EVAL_ARGS = dict(in_fields='eeg', out_field='intensity', frame_rate=100,
+                 pre_context=0, post_context=4, in2_fields='intensity',
+                 in2_pre_context=2, in2_post_context=2,
+                 train_file_pattern='allbut',
+                 validate_file_pattern='trial_02',
+                 test_file_pattern='trial_02', final_batch_size=128,
+                 shuffle_buffer_size=0)
+
+
+def _sources(data_dir, **kwargs):
+    """Fresh TFExampleData of both packages over the same files, so
+    both generators start from the same state."""
+    from telluride_decoding_tpu.data import brain_data as jax_bd
+    from telluride_decoding_torch.data import brain_data
+    args = dict(EVAL_ARGS, data_dir=data_dir, **kwargs)
+    return (brain_data.TFExampleData(device='cpu', **args),
+            jax_bd.TFExampleData(**args))
+
+
+def _evaluation_decoders(tmp_path, kind):
+    """A model and decoder trained by the JAX package on TFRecords and
+    saved; returns (port decoder, JAX decoder) loaded from that dir and
+    the records directory."""
+    from telluride_decoding_tpu.models import BrainModelLinearRegression
+    train, _ = recordings(files=3, frames=1200)
+    data_dir = str(tmp_path / 'records')
+    chip_smoke.write_records(train, data_dir)
+    _, ref = _sources(data_dir)
+    spec = ref.spec_dataset()
+    if kind == 'linear':
+        model = BrainModelLinearRegression(spec, 1e-3)
+        decoder = jax_infer.LinearRegressionDecoder(model, reduction='lda')
+    else:
+        model = JaxCCA(spec, cca_dims=DIMS, regularization_lambda=1e-3)
+        decoder = jax_infer.CCADecoder(model, reduction='lda')
+    model.fit(ref.create_dataset('train'))
+    decoder.train(ref.create_dataset('test', mixup_batch=True),
+                  ref.create_dataset('test'), window_size=50)
+    model.add_metadata(dict(FLAGS, dnn_regressor=kind), dataset=spec)
+    path = str(tmp_path / 'model')
+    model.save(path)
+    decoder.save_parameters(os.path.join(path, 'decoder_model.json'))
+    return (serve.load_model(path, 'lda', 'cpu'), _jax_decoder(path),
+            data_dir)
+
+
+def _assert_pairs_close(got, want):
+    got, want = list(got), list(want)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        for g_part, w_part in zip(g, w):
+            np.testing.assert_allclose(g_part, w_part, **EVAL_TOL)
+
+
+@pytest.mark.parametrize('kind', ['linear', 'cca'])
+def test_evaluation_helpers_match_jax(tmp_path, kind):
+    """test_all, test_by_window (window_size 50 and 1), frame_scores on
+    both paths, window_means, test_by_window_means, reduce_with_lda and
+    check_model_and_data on the same model dir and files, within 1e-5."""
+    got, want, data_dir = _evaluation_decoders(tmp_path, kind)
+    assert isinstance(got, infer_decoder.LinearRegressionDecoder if
+                      kind == 'linear' else infer_decoder.CCADecoder)
+    assert got.model_inputs == want.model_inputs
+    assert got.model_output == want.model_output
+    port, ref = _sources(data_dir)
+    _assert_pairs_close([got.test_all(port.create_dataset('test'))],
+                        [want.test_all(ref.create_dataset('test'))])
+    for window in (50, 1):
+        _assert_pairs_close(
+            got.test_by_window(port.create_dataset('test'), window),
+            want.test_by_window(ref.create_dataset('test'), window))
+    fast = got.frame_scores(port.create_dataset('test'))
+    slow = got.frame_scores(list(port.create_dataset('test')))
+    assert fast[0].shape == (1152,)      # 1200 frames cut to 9 x 128.
+    _assert_pairs_close([fast, slow],
+                        [want.frame_scores(ref.create_dataset('test'))] * 2)
+    # Mixup makes the slow path decode the transformed batches; both
+    # sources draw the same permutations from fresh generators.
+    port, ref = _sources(data_dir)
+    _assert_pairs_close(
+        [got.frame_scores(port.create_dataset('test', mixup_batch=True))],
+        [want.frame_scores(ref.create_dataset('test', mixup_batch=True))])
+    _assert_pairs_close(
+        [got.window_means(*fast, 50)],
+        [jax_infer.Decoder.window_means(*fast, 50)])
+    _assert_pairs_close(
+        [got.test_by_window_means(port.create_dataset('test'), 50)],
+        [want.test_by_window_means(ref.create_dataset('test'), 50)])
+    correlations = np.random.RandomState(2).randn(
+        20, 1 if kind == 'linear' else DIMS)
+    np.testing.assert_allclose(got.reduce_with_lda(correlations),
+                               want.reduce_with_lda(correlations),
+                               **EVAL_TOL)
+    got.check_model_and_data(port.create_dataset('test'))
+    want.check_model_and_data(ref.create_dataset('test'))
+    port, ref = _sources(data_dir, post_context=2)
+    with pytest.raises(TypeError):
+        got.check_model_and_data(port.create_dataset('test'))
+    with pytest.raises(TypeError):
+        want.check_model_and_data(ref.create_dataset('test'))
+
+
+def test_window_helpers_edge_cases():
+    scores = np.arange(10, dtype=np.float64)
+    labels = np.ones(10)
+    means, mean_labels = infer_decoder.Decoder.window_means(scores, labels,
+                                                            4)
+    np.testing.assert_allclose(means, [1.5, 3.5, 5.5, 7.5])
+    np.testing.assert_allclose(mean_labels, 1.0)
+    # window_size 1 steps by one frame, not zero.
+    assert infer_decoder.Decoder.window_means(scores, labels,
+                                              1)[0].shape == (10,)
+    assert infer_decoder.Decoder.window_means(scores, labels,
+                                              11)[0].shape == (0,)
+    decoder = infer_decoder.LinearRegressionDecoder(None, device='cpu')
+    with pytest.raises(ValueError):
+        decoder.reduce_with_lda(np.zeros((3, 1)))
+    with pytest.raises(ValueError):
+        decoder.check_model_and_data([])
+    assert decoder.frame_scores([])[0].shape == (0,)
+
+
+def test_module_create_dataset_matches_jax(tmp_path):
+    """The two-speaker test dataset of one file: the audio label as
+    input_2 and output, in stored order, batches of 200."""
+    from telluride_decoding_torch.data import records
+    (eeg, a1, a2), = recordings(files=1, frames=900)[0]
+    path = str(tmp_path / 'two_speakers.tfrecords')
+    records.convert_data_to_tfrecords(
+        {'eeg': eeg, 'intensity': a1, 'intensity2': a2,
+         'attended_speaker': (np.arange(900) >= 450).astype(
+             np.float32)[:, None]}, path)
+    params = {'input_field': 'eeg', 'pre_context': 0, 'post_context': 4,
+              'input2_pre_context': 2, 'input2_post_context': 2}
+    for label in ('intensity', 'intensity2'):
+        got = list(infer_decoder.create_dataset(path, params, label,
+                                                device='cpu'))
+        want = list(jax_infer.create_dataset(path, params, label))
+        assert len(got) == len(want) == 4
+        for (g_in, g_out), (w_in, w_out) in zip(got, want):
+            for key in w_in:
+                np.testing.assert_array_equal(g_in[key], w_in[key])
+            np.testing.assert_array_equal(g_out, w_out)

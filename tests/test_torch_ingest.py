@@ -220,3 +220,20 @@ def test_transform_tfrecords_matches_jax(rng, tmp_path):
                                           [double])
     with open(got, 'rb') as f, open(want, 'rb') as g:
         assert f.read() == g.read()
+
+
+def test_jax_kuleuven_reingest_of_a_complete_subject_raises(rng, tmp_path):
+    """The JAX side of the re-ingest fault the port does not copy: on a
+    cache whose trials are all on disk, the JAX driver builds an empty
+    BrainExperiment and z-scores it, and next(iter({}.values()))
+    (telluride_decoding_tpu/io/ingest.py:603, reached from
+    telluride_decoding_tpu/cli/regression_data.py:594-597) raises
+    StopIteration. The port skips the subject instead
+    (test_kuleuven_ingests_the_subjects_present)."""
+    cache = str(tmp_path / 'cache')
+    kuleuven_cache(rng, cache)            # The JAX driver reads S1..S16.
+    tf_dir = str(tmp_path / 'jax')
+    jax_rd.RegressionDataKULeuven().ingest_data(cache, tf_dir, 32)
+    assert len(tfrecord_files(tf_dir)) == 32
+    with pytest.raises(StopIteration):
+        jax_rd.RegressionDataKULeuven().ingest_data(cache, tf_dir, 32)

@@ -42,3 +42,23 @@ def test_zero_power_guard_zeroes_everything(rng):
 def test_width_mismatch_raises():
     with pytest.raises(ValueError):
         pearson.pearson_correlation(torch.zeros(5, 2), torch.zeros(5, 3))
+
+
+@pytest.mark.parametrize('name', ['pearson_correlation_second',
+                                  'pearson_loss', 'correlation_matrix'])
+def test_second_loss_and_matrix_match_jax(rng, name):
+    """The three later functions, within 1e-5 (float32 sums in another
+    order); correlation_matrix runs in full float32 on both sides."""
+    x = rng.randn(400, 3).astype(np.float32)
+    y = (0.5 * x + rng.randn(400, 3)).astype(np.float32)
+    got = getattr(pearson, name)(torch.from_numpy(x), torch.from_numpy(y))
+    want = np.asarray(getattr(jax_pearson, name)(x, y))
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_second_and_loss_reject_bad_shapes():
+    with pytest.raises(ValueError):
+        pearson.pearson_correlation_second(torch.zeros(5), torch.zeros(5))
+    with pytest.raises(ValueError):
+        pearson.pearson_loss(torch.zeros(5, 2), torch.zeros(5, 3))
