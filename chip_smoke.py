@@ -26,12 +26,20 @@ drives the two main paths once:
   with the streamed fit, K2; linear with the dense fit) -> results.txt,
   model and decoder_model.json -> the saved CCA decoder's
   ``test_by_window_means`` over the held-out file (K1 over all of its
-  frames in one launch), once against each speaker.
+  frames in one launch), once against each speaker;
+
+  sweep path, the codelab's jackknife x lambda sweep at full width: 40
+  seeded TFRecord files of 3300 frames -> ``cli.regression.main`` twice
+  (jens_memory_linear: 360 ridge fits; jens_memory_cca: 360 CCA fits),
+  9 lambdas, raw channels to the card and each file lag-stacked there by
+  K2 inside the moments -> per-lambda results.txt and the CSV.
 
 Decisions must track the planted switch, served scores must match a
-CPU decode of the same stream with the plain versions, and the decoding
+CPU decode of the same stream with the plain versions, the decoding
 driver's results.txt on the card must match the CPU's on a shorter copy
-of its corpus.
+of its corpus, and the sweep's grids must match the CPU's on a short
+copy and host lag stacking at full width, with the best lambda's mean
+held-out r above the planted TRF's matched filter's less a margin.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -56,6 +64,14 @@ IN2_PRE, IN2_POST = 15, 15                     # 1 x 31 columns.
 CCA_DIMS = 10
 TRAIN_FILES, TRAIN_FRAMES, STREAM_FRAMES = 4, 12000, 6000
 DECODING_FILES, SHORT_FRAMES = 5, 3000         # cli.decoding corpus.
+# The codelab's jackknife x lambda sweep (bench.py:366-404): 40 trials of
+# 3300 frames, 9 lambdas, EEG 69 x 37 = 2553 columns; and its short copy
+# for the card-against-CPU check (files, frames, post context).
+SWEEP_FILES, SWEEP_FRAMES = 40, 3300
+SWEEP_LAMBDAS = np.logspace(-6, 2, 9)
+SWEEP_SHORT = (8, 1000, 8)
+SWEEP_TOL = 1e-4                               # Grids, card vs CPU / host.
+SWEEP_MARGIN = 0.05                            # Below the matched filter.
 FLAGSHIP = (512, 100)                          # Windows x frames.
 # KULeuven CCA preset (telluride_decoding_tpu/cli/regression.py:453-469,
 # :520-525): EEG post context 21 (64 x 22 = 1408 columns), intensity
@@ -274,6 +290,8 @@ def phase_lagstack(torch, device):
     worst = 0.0
     for n, c, pre, post in [(TRAIN_FRAMES, IN1_CHANNELS, PRE, POST),
                             (STREAM_FRAMES, 1, IN2_PRE, IN2_POST),
+                            (SWEEP_FRAMES + POST, IN1_CHANNELS, PRE, POST),
+                            (SWEEP_FRAMES + POST, 1, IN2_PRE, IN2_POST),
                             (11520, 64, 0, 21), (1237, 5, 3, 2),
                             (7, 3, 5, 9)]:
         x = torch.randn((n, c), generator=gen, device=device)
@@ -293,7 +311,7 @@ def phase_lagstack(torch, device):
     limit = bound_ms(x.numel() * 4 + out_bytes)
     on_device = device_ms(torch, lambda: lag_stack(x, PRE, POST),
                           'lag_stack_kernel')
-    log('phase 2 lag_stack: bit-exact at 5 shapes; [%d, %d] pre %d post %d: '
+    log('phase 2 lag_stack: bit-exact at 7 shapes; [%d, %d] pre %d post %d: '
         'kernel %.4f ms (%.0f GB/s written), on the device %s, plain %.4f '
         'ms, bound %.4f ms'
         % (TRAIN_FRAMES, IN1_CHANNELS, PRE, POST, ms, out_bytes / ms / 1e6,
@@ -533,12 +551,18 @@ def _speaker(rng, n):
         np.float32)[:, None]
 
 
+def planted_trf(rng, channels):
+    """The random TRF (channels x 25 lags) the synthetic EEG is made
+    with: the first draw of synthetic_recordings' generator."""
+    lags = np.arange(25)
+    return rng.randn(channels, lags.size) * np.exp(-lags / 8.0)
+
+
 def synthetic_recordings(seed, channels, files, frames, stream_frames):
     """Training files (eeg, attended, unattended) and a served stream
     whose attention moves from speaker 1 to speaker 2 at its midpoint."""
     rng = np.random.RandomState(seed)
-    lags = np.arange(25)
-    trf = rng.randn(channels, lags.size) * np.exp(-lags / 8.0)
+    trf = planted_trf(rng, channels)
 
     def eeg(attended):
         n = attended.shape[0]
@@ -1241,6 +1265,233 @@ def phase_decoding(torch, device, smi):
     return launches, k1
 
 
+def sweep_corpus(data_dir, short_dir, seed=9):
+    """The sweep's corpus: SWEEP_FILES seeded recordings of SWEEP_FRAMES
+    frames as TFRecords, and its short copy (the first files' first
+    frames); returns the held-out r of the planted TRF's matched filter,
+    the mean over files of corr(sum_c sum_k trf[c, k] eeg[t + k, c],
+    intensity[t]). That decoder is linear in the 37-lag EEG window (its
+    lags reach 24), and a (lag 0 intensity, matched filter) pair is in
+    the CCA's spaces, so the best lambda's mean held-out r of either
+    sweep should reach it, less a little for the fit's estimation error
+    (SWEEP_MARGIN)."""
+    from telluride_decoding_torch.data import records
+    train, _ = synthetic_recordings(seed, IN1_CHANNELS, SWEEP_FILES,
+                                    SWEEP_FRAMES, 100)
+    trf = planted_trf(np.random.RandomState(seed), IN1_CHANNELS)
+    shutil.rmtree(data_dir, ignore_errors=True)
+    write_records(train, data_dir)
+    files, frames, _ = SWEEP_SHORT
+    shutil.rmtree(short_dir, ignore_errors=True)
+    os.makedirs(short_dir)
+    for i in range(files):
+        eeg, a1, a2 = (a[:frames] for a in train[i])
+        records.convert_data_to_tfrecords(
+            {'eeg': eeg, 'intensity': a1, 'intensity2': a2},
+            os.path.join(short_dir, 'trial_%02d.tfrecords' % i))
+    rs = []
+    for eeg, a1, _ in train:
+        pred = np.zeros(eeg.shape[0])
+        for k in range(trf.shape[1]):
+            pred[:eeg.shape[0] - k] += eeg[k:] @ trf[:, k]
+        rs.append(np.corrcoef(pred, a1[:, 0])[0, 1])
+    return float(np.mean(rs))
+
+
+def run_regression(torch, test_name, data_dir, work_dir, device, post,
+                   device_context=True):
+    """One run of ``cli.regression.main`` over the lambda grid; returns
+    the CSV's [lambdas, files] grid, seconds, the driver's stage report,
+    K2's launches and the card's peak allocation."""
+    import contextlib
+    import io
+    from telluride_decoding_torch.cli import regression
+    from telluride_decoding_torch.ops.lagstack import lag_stack
+    summary_dir = os.path.join(work_dir, test_name + '_summary')
+    csv_file = os.path.join(work_dir, test_name + '.csv')
+    shutil.rmtree(summary_dir, ignore_errors=True)
+    argv = ['--tfexample_dir', data_dir, '--test_name', test_name,
+            '--post_context', str(post), '--regularization_list',
+            ','.join(repr(float(l)) for l in SWEEP_LAMBDAS),
+            '--summary_base_dir', summary_dir, '--results_csv_file',
+            csv_file, '--device', str(device)]
+    on_card = torch.device(device).type == 'cuda'
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    before = lag_stack.launches
+    old_env = os.environ.get('TDT_DEVICE_CONTEXT')
+    os.environ['TDT_DEVICE_CONTEXT'] = '1' if device_context else '0'
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = regression.main(argv)
+    finally:
+        if old_env is None:
+            del os.environ['TDT_DEVICE_CONTEXT']
+        else:
+            os.environ['TDT_DEVICE_CONTEXT'] = old_env
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError('cli.regression.main returned %d' % rc)
+    text = out.getvalue()
+    grid = np.loadtxt(csv_file, delimiter=',', ndmin=2)[:, 1:]
+    if not np.all(np.isfinite(grid)):
+        raise AssertionError('%s: the grid has non-finite correlations'
+                             % test_name)
+    return dict(grid=grid, seconds=seconds,
+                report=text[text.index('jackknife_over_regularizations '
+                                       'timing:'):].strip(),
+                launches=lag_stack.launches - before,
+                peak_gb=(torch.cuda.max_memory_allocated() / 1e9
+                         if on_card else None))
+
+
+def grid_seconds(torch, device, data_dir):
+    """The grid programs alone on the codelab sweep's moments, timed on
+    the host with the card synchronised: ridge at 9 lambdas through the
+    Cholesky path and through the eig path (force_eig), the evidence for
+    the 24-lambda switch on the card, and the same for CCA; each twice,
+    and the largest difference between the two paths' grids."""
+    from telluride_decoding_torch.cli import decoding, regression
+    from telluride_decoding_torch.ops.covariance import MomentStats
+    from telluride_decoding_torch.sweep import engine
+    lam = torch.as_tensor(np.float32(SWEEP_LAMBDAS), device=device)
+    out = {}
+    for test_name, fast, slow in (
+            ('jens_memory_linear', engine._ridge_sweep_program,
+             engine._ridge_eig_program),
+            ('jens_memory_cca', engine._cca_sweep_program_chol,
+             engine._cca_sweep_program)):
+        opts = decoding.DecodingOptions(tfexample_dir=data_dir,
+                                        post_context=POST)
+        preset = regression.select_regression_object(test_name, opts,
+                                                      device=device)
+        preset.preset_flags()
+        data = regression.get_brain_data_object(opts, device)
+        xs, ys, ctx = preset._per_file_raw(data, sorted(data.all_files()))
+        stats = engine.per_file_stats(xs, ys, True, context=ctx,
+                                      device=device)
+        total = MomentStats(*(s.sum(0) for s in stats))
+        grids = {}
+        for path, program in (('cholesky', fast), ('eig', slow)):
+            seconds = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                grids[path] = program(stats, total, lam).cpu().numpy()
+                seconds.append(time.perf_counter() - t0)
+            out['%s_%s_s' % (opts.dnn_regressor, path)] = seconds
+        out['%s_paths_differ' % opts.dnn_regressor] = float(
+            np.max(np.abs(grids['cholesky'] - grids['eig'])))
+        del stats, total
+    return out
+
+
+def fmt_gb(gb):
+    return 'not measured' if gb is None else '%.2f GB' % gb
+
+
+def stage_line(report):
+    return '; '.join(' '.join(line.split()[:3])
+                     for line in report.splitlines()[1:])
+
+
+def phase_sweep(torch, device, smi):
+    """The jackknife x lambda sweep at the codelab's full width through
+    ``cli.regression.main``: 360 ridge fits (jens_memory_linear) and 360
+    CCA fits (jens_memory_cca, intensity lags 15/15, 5 dimensions) over
+    40 files of 3300 frames at 69 x 37 = 2553 EEG columns, raw channels
+    to the card and each file lag-stacked there by K2. Gates: K2
+    launched in both runs, finite grids, the best lambda's mean r above
+    the planted matched filter's less SWEEP_MARGIN, the card within
+    SWEEP_TOL of the CPU on a short copy and of host lag stacking
+    (TDT_DEVICE_CONTEXT=0) at full width."""
+    start = time.perf_counter()
+    work = os.path.join(BUILD, 'sweep')
+    data_dir = os.path.join(work, 'records')
+    short_dir = os.path.join(work, 'records_short')
+    matched_r = sweep_corpus(data_dir, short_dir)
+    threshold = matched_r - SWEEP_MARGIN
+    runs = {}
+    read_launches = reset_launches()
+    for test_name in ('jens_memory_linear', 'jens_memory_cca'):
+        runs[test_name] = run_regression(torch, test_name, data_dir, work,
+                                         device, POST)
+    launches = read_launches()
+    for test_name, run in runs.items():
+        require_launched({'lag_stack': run['launches']}, ('lag_stack',),
+                         test_name + ' sweep')
+        best = float(np.max(np.mean(run['grid'], axis=1)))
+        run['best_mean_r'] = best
+        if run['grid'].shape != (SWEEP_LAMBDAS.size, SWEEP_FILES):
+            raise AssertionError('%s: grid shape %s'
+                                 % (test_name, run['grid'].shape))
+        if not best > threshold:
+            raise AssertionError(
+                '%s: best mean held-out r %.4f is not above %.4f (the '
+                'matched filter %.4f less %g)' % (test_name, best,
+                                                  threshold, matched_r,
+                                                  SWEEP_MARGIN))
+        host = run_regression(torch, test_name, data_dir, work + '_host',
+                              device, POST, device_context=False)
+        run['host'] = host
+        run['host_differs'] = float(np.max(np.abs(host['grid'] -
+                                                  run['grid'])))
+        if run['host_differs'] > SWEEP_TOL:
+            raise AssertionError('%s: device context and host stacking '
+                                 'differ by %g' % (test_name,
+                                                   run['host_differs']))
+        files, frames, post = SWEEP_SHORT
+        card = run_regression(torch, test_name, short_dir, work + '_card',
+                              device, post)
+        cpu = run_regression(torch, test_name, short_dir, work + '_cpu',
+                             'cpu', post)
+        run['short'] = dict(card=card, cpu=cpu, differs=float(
+            np.max(np.abs(card['grid'] - cpu['grid']))))
+        if run['short']['differs'] > SWEEP_TOL:
+            raise AssertionError('%s short copy: card and CPU grids differ '
+                                 'by %g' % (test_name,
+                                            run['short']['differs']))
+    grids = grid_seconds(torch, device, data_dir)
+    for test_name, run in runs.items():
+        log('phase 9 sweep %s: %d lambdas x %d files at %d columns on the '
+            'card: %.2f s (%s); best mean held-out r %.4f (gate %.4f: the '
+            'planted matched filter %.4f less %g); K2 launches %d; peak '
+            'allocated %s; %s'
+            % (test_name, SWEEP_LAMBDAS.size, SWEEP_FILES,
+               IN1_CHANNELS * (PRE + 1 + POST), run['seconds'],
+               stage_line(run['report']), run['best_mean_r'], threshold,
+               matched_r, SWEEP_MARGIN, run['launches'],
+               fmt_gb(run['peak_gb']), smi))
+        log('phase 9 sweep %s host-stacked (TDT_DEVICE_CONTEXT=0): %.2f s '
+            '(%s); peak allocated %s; grid within %.3g of the device '
+            'context run; %s'
+            % (test_name, run['host']['seconds'],
+               stage_line(run['host']['report']),
+               fmt_gb(run['host']['peak_gb']), run['host_differs'], smi))
+        short = run['short']
+        log('phase 9 sweep %s short copy (%d files x %d frames, post %d): '
+            'card %.2f s (%s), CPU %.2f s (%s); grids within %.3g; %s'
+            % ((test_name,) + SWEEP_SHORT +
+               (short['card']['seconds'], stage_line(short['card']['report']),
+                short['cpu']['seconds'], stage_line(short['cpu']['report']),
+                short['differs'], smi)))
+    log('phase 9 grid programs alone at 9 lambdas (two runs each): ridge '
+        'Cholesky %s s, ridge eig (force_eig) %s s, paths within %.3g; '
+        'CCA Cholesky %s s, CCA eig %s s, paths within %.3g; %s'
+        % (['%.3f' % t for t in grids['linear_cholesky_s']],
+           ['%.3f' % t for t in grids['linear_eig_s']],
+           grids['linear_paths_differ'],
+           ['%.3f' % t for t in grids['cca_cholesky_s']],
+           ['%.3f' % t for t in grids['cca_eig_s']],
+           grids['cca_paths_differ'], smi))
+    log('phase 9 sweep: %.1f s in all; launches %s; %s'
+        % (time.perf_counter() - start, launches, smi))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1257,8 +1508,9 @@ def main():
     phase_sosfilt(torch, device)
     kuleuven = phase_ingest_slice(torch, device, smi, k3['ms'])
     decoding, k1_frame_scores = phase_decoding(torch, device, smi)
-    launches = {name: codelab[name] + kuleuven[name] + decoding[name]
-                for name in kuleuven}
+    sweep = phase_sweep(torch, device, smi)
+    launches = {name: codelab[name] + kuleuven[name] + decoding[name] +
+                sweep[name] for name in kuleuven}
     common = dict(route='cuda', library_ms=None)
     kernels = [
         dict(name='fused_cca_decode',

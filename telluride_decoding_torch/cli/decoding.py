@@ -226,12 +226,11 @@ def _parse_bool(text: str) -> bool:
     raise argparse.ArgumentTypeError('not a boolean: %r' % text)
 
 
-def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(
-        prog='python -m telluride_decoding_torch.cli.decoding',
-        description='Train and test one decoding model from TFRecords.',
-        allow_abbrev=False)
-    for name, kind, default, choices, help_text in _FLAGS:
+def add_flags(parser: argparse.ArgumentParser, flag_specs) -> None:
+    """Adds (name, type, default, choices, help) flags in absl's
+    spellings: booleans take ``--flag``, ``--flag=value`` and
+    ``--noflag``."""
+    for name, kind, default, choices, help_text in flag_specs:
         if kind is bool:
             parser.add_argument('--' + name, nargs='?', const=True,
                                 default=default, type=_parse_bool,
@@ -242,6 +241,14 @@ def build_parser() -> argparse.ArgumentParser:
         else:
             parser.add_argument('--' + name, type=kind, default=default,
                                 choices=choices, help=help_text)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog='python -m telluride_decoding_torch.cli.decoding',
+        description='Train and test one decoding model from TFRecords.',
+        allow_abbrev=False)
+    add_flags(parser, _FLAGS)
     parser.add_argument('--device', default='cuda',
                         help='torch device to run on (cuda, or cpu for the '
                         'plain versions of the kernels).')

@@ -41,14 +41,18 @@ def cca_covariances_from_stats(stats: MomentStats):
     The quirk (telluride_decoding_tpu/solvers/cca.py:53-74): sums divide
     by (N - 1) while the subtracted mean outer products use the /N means.
     Returns (mean_x, mean_y, cov_xx, cov_yy, cov_xy), unsymmetrized.
+    Leading batch dimensions (one a file, in the sweep) pass through.
     """
-    n = stats.count
+    n = stats.count[..., None]
     mean_x = stats.sum_x / n
     mean_y = stats.sum_y / n
-    denom = n - 1.0
-    cov_xx = stats.sxx / denom - torch.outer(mean_x, mean_x)
-    cov_yy = stats.syy / denom - torch.outer(mean_y, mean_y)
-    cov_xy = stats.sxy / denom - torch.outer(mean_x, mean_y)
+    denom = n[..., None] - 1.0
+
+    def outer(a, b):
+        return a[..., :, None] * b[..., None, :]
+    cov_xx = stats.sxx / denom - outer(mean_x, mean_x)
+    cov_yy = stats.syy / denom - outer(mean_y, mean_y)
+    cov_xy = stats.sxy / denom - outer(mean_x, mean_y)
     return mean_x, mean_y, cov_xx, cov_yy, cov_xy
 
 

@@ -38,14 +38,15 @@ def _augmented_moments(stats: MomentStats):
     """The reference's augmented (x|1) moment matrices.
 
     With z = [x, 1]: sum z^T z = [[sxx, sum_x^T], [sum_x, n]] and
-    sum z^T y = [[sxy], [sum_y]].
+    sum z^T y = [[sxy], [sum_y]]. Leading batch dimensions (one a file,
+    in the sweep) pass through.
     """
     n = stats.count
-    sx = stats.sum_x[:, None]
-    top = torch.cat([stats.sxx, sx], dim=1)
-    bot = torch.cat([sx.T, n.reshape(1, 1)], dim=1)
-    szz = torch.cat([top, bot], dim=0)
-    szy = torch.cat([stats.sxy, stats.sum_y[None, :]], dim=0)
+    sx = stats.sum_x[..., :, None]
+    top = torch.cat([stats.sxx, sx], dim=-1)
+    bot = torch.cat([sx.transpose(-1, -2), n[..., None, None]], dim=-1)
+    szz = torch.cat([top, bot], dim=-2)
+    szy = torch.cat([stats.sxy, stats.sum_y[..., None, :]], dim=-2)
     return szz, szy
 
 

@@ -331,3 +331,34 @@ def test_frame_scores_on_card_match_cpu(cuda):
     got_batches = card.frame_scores(list(dataset))
     np.testing.assert_allclose(got_batches[0], want[0], rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('grid', ['ridge_cholesky', 'ridge_eig', 'cca'])
+def test_sweep_grid_on_card_matches_cpu(cuda, grid):
+    """The jackknife grid from raw streams with the lag context on the
+    card (one K2 launch per file per lagged input) against the same
+    sweep on the CPU (plain lag stack): correlations within 1e-4."""
+    from telluride_decoding_torch.sweep import engine
+    rng = np.random.RandomState(7)
+    ctx = engine.ContextSpec(0, 8, 2, 2) if grid == 'cca' else \
+        engine.ContextSpec(0, 8, 0, 0)
+    xs, ys = [], []
+    for n in (900, 1100, 1000, 950, 1200, 1050, 980, 1010):
+        x = rng.randn(n + ctx.x_post, 69).astype(np.float32)
+        y = np.zeros((n + ctx.y_post, 1), np.float32)
+        y[:n] = x[:n, :1] + 0.5 * rng.randn(n, 1)
+        xs.append(x)
+        ys.append(y)
+    lambdas = (list(np.logspace(-6, 2, 25)) if grid == 'ridge_eig'
+               else list(np.logspace(-6, 2, 9)))
+    sweep = (engine.cca_jackknife_sweep if grid == 'cca'
+             else engine.ridge_jackknife_sweep)
+    before = lagstack.lag_stack.launches
+    got = sweep(xs, ys, lambdas, context=ctx, device=cuda)
+    launches = lagstack.lag_stack.launches - before
+    assert launches == len(xs) * (2 if grid == 'cca' else 1)
+    want = sweep(xs, ys, lambdas, context=ctx, device='cpu')
+    assert np.isfinite(got.correlations).all()
+    np.testing.assert_allclose(got.correlations, want.correlations,
+                               rtol=0, atol=1e-4)

@@ -114,6 +114,13 @@ def test_import_leaves_jax_out():
         '        del sys.modules[name]\n'
         'import telluride_decoding_torch.cli.serve\n'
         'import telluride_decoding_torch.cli.regression_data\n'
+        'import telluride_decoding_torch.cli.regression\n'
+        'import telluride_decoding_torch.sweep.engine\n'
+        'import telluride_decoding_torch.sweep.checkpoint\n'
+        'import telluride_decoding_torch.utils.csv_util\n'
+        'import telluride_decoding_torch.utils.plot_util\n'
+        'import telluride_decoding_torch.utils.results\n'
+        'import telluride_decoding_torch.utils.stdio\n'
         'import telluride_decoding_torch.data.records\n'
         'import telluride_decoding_torch.io.ingest\n'
         'import telluride_decoding_torch.models.convert\n'
