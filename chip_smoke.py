@@ -32,14 +32,26 @@ drives the two main paths once:
   seeded TFRecord files of 3300 frames -> ``cli.regression.main`` twice
   (jens_memory_linear: 360 ridge fits; jens_memory_cca: 360 CCA fits),
   9 lambdas, raw channels to the card and each file lag-stacked there by
-  K2 inside the moments -> per-lambda results.txt and the CSV.
+  K2 inside the moments -> per-lambda results.txt and the CSV;
+
+  cohort path, the codelab's cross-subject analysis at full width: 22
+  seeded subjects x 40 TFRecord trials of about 3300 frames (908 MB) ->
+  ``telluride_decoding_torch.cli.cohort.main`` (7,920 ridge fits, a
+  prefetch thread reading subject k+1 while subject k sweeps, K2 once a
+  trial) -> the cohort CSV, the per-subject CSVs and the summary table;
+  then, on its first subjects, eager against streaming loading, a CCA
+  cohort, two partition processes joined through part files, and host
+  lag stacking.
 
 Decisions must track the planted switch, served scores must match a
 CPU decode of the same stream with the plain versions, the decoding
 driver's results.txt on the card must match the CPU's on a shorter copy
 of its corpus, and the sweep's grids must match the CPU's on a short
 copy and host lag stacking at full width, with the best lambda's mean
-held-out r above the planted TRF's matched filter's less a margin.
+held-out r above the planted TRF's matched filter's less a margin. The
+cohort's best mean r meets the same gate; its streaming and eager runs
+must give bit-identical grids, its partitioned run the single run's
+cohort CSV, and its short copy the CPU's grids.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -50,6 +62,7 @@ result. The line before the last holds the kernels' numbers as JSON; the
 last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -72,6 +85,15 @@ SWEEP_LAMBDAS = np.logspace(-6, 2, 9)
 SWEEP_SHORT = (8, 1000, 8)
 SWEEP_TOL = 1e-4                               # Grids, card vs CPU / host.
 SWEEP_MARGIN = 0.05                            # Below the matched filter.
+# The codelab's cross-subject analysis (examples/make_synthetic_cohort.py):
+# 22 subjects x 40 trials of 3300 - (t mod 5) * 37 frames, 69 EEG
+# channels, a planted 37-lag TRF driving intensity; at 9 lambdas 7,920
+# ridge fits. The checks run on its first few subjects, and a short copy
+# (subjects, trials, frames, post context) runs on card and CPU.
+COHORT_SUBJECTS, COHORT_TRIALS, COHORT_NOISE = 22, 40, 0.3
+COHORT_FEW, COHORT_HOST = 4, 2
+COHORT_SHORT = (3, 8, 1000, 8)
+PARTITION_TOL = 1e-6                           # Joined vs single cohort CSV.
 FLAGSHIP = (512, 100)                          # Windows x frames.
 # KULeuven CCA preset (telluride_decoding_tpu/cli/regression.py:453-469,
 # :520-525): EEG post context 21 (64 x 22 = 1408 columns), intensity
@@ -97,6 +119,21 @@ BUILD = os.path.join(REPO, 'build')
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Sets environment variables (strings) for a block."""
+    saved = {key: os.environ.get(key) for key in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                del os.environ[key]
+            else:
+                os.environ[key] = value
 
 
 def time_ms(torch, fn, reps=20, warmup=3):
@@ -1022,7 +1059,6 @@ def run_decoding(kind, data_dir, work_dir, device, test_file):
     """One run of ``cli.decoding.main`` at codelab width (CCA with the
     streamed fit, or the dense linear fit); returns (results.txt as
     {name: value}, the StageTimer's report, seconds, model dir)."""
-    import contextlib
     import io
     from telluride_decoding_torch.cli import decoding
     summary_dir = os.path.join(work_dir, kind + '_summary')
@@ -1303,7 +1339,6 @@ def run_regression(torch, test_name, data_dir, work_dir, device, post,
     """One run of ``cli.regression.main`` over the lambda grid; returns
     the CSV's [lambdas, files] grid, seconds, the driver's stage report,
     K2's launches and the card's peak allocation."""
-    import contextlib
     import io
     from telluride_decoding_torch.cli import regression
     from telluride_decoding_torch.ops.lagstack import lag_stack
@@ -1320,18 +1355,11 @@ def run_regression(torch, test_name, data_dir, work_dir, device, post,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     before = lag_stack.launches
-    old_env = os.environ.get('TDT_DEVICE_CONTEXT')
-    os.environ['TDT_DEVICE_CONTEXT'] = '1' if device_context else '0'
     out = io.StringIO()
     t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(out):
-            rc = regression.main(argv)
-    finally:
-        if old_env is None:
-            del os.environ['TDT_DEVICE_CONTEXT']
-        else:
-            os.environ['TDT_DEVICE_CONTEXT'] = old_env
+    with environ(TDT_DEVICE_CONTEXT='1' if device_context else '0'), \
+            contextlib.redirect_stdout(out):
+        rc = regression.main(argv)
     seconds = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError('cli.regression.main returned %d' % rc)
@@ -1492,6 +1520,387 @@ def phase_sweep(torch, device, smi):
     return launches
 
 
+def cohort_corpus(root, short_root):
+    """The cohort's corpus as TFRecords: COHORT_SUBJECTS subjects
+    (subj00, ...) of COHORT_TRIALS trials, trial t of 3300 - (t mod 5) *
+    37 frames of 69-channel white EEG and intensity = the EEG's 37-lag
+    stack times a seeded TRF plus noise (the geometry of
+    examples/make_synthetic_cohort.py; the response is summed lag by lag,
+    so no [frames, 2553] stack is made); and the short copy, the first
+    frames of the first trials of the first subjects. Returns the mean
+    over trials of the planted TRF's r (corr(response, intensity)), the
+    matched filter's, and the corpus's bytes on disk."""
+    from telluride_decoding_torch.data import records
+    lags = PRE + 1 + POST
+    weights = (np.random.RandomState(0).randn(IN1_CHANNELS * lags, 1)
+               / np.sqrt(IN1_CHANNELS * lags)).astype(np.float32)
+    weights = weights.reshape(lags, IN1_CHANNELS)
+    short_subjects, short_trials, short_frames, _ = COHORT_SHORT
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(short_root, ignore_errors=True)
+    rs, nbytes = [], 0
+    for s in range(COHORT_SUBJECTS):
+        rng = np.random.RandomState(100 + s)
+        name = 'subj%02d' % s
+        os.makedirs(os.path.join(root, name))
+        for t in range(COHORT_TRIALS):
+            frames = SWEEP_FRAMES - (t % 5) * lags
+            eeg = rng.randn(frames, IN1_CHANNELS).astype(np.float32)
+            padded = np.concatenate(
+                [eeg, np.zeros((lags - 1, IN1_CHANNELS), np.float32)])
+            response = sum(padded[k:k + frames] @ weights[k]
+                           for k in range(lags))
+            intensity = (response + COHORT_NOISE * rng.randn(frames)
+                         ).astype(np.float32)[:, None]
+            rs.append(np.corrcoef(response, intensity[:, 0])[0, 1])
+            path = os.path.join(root, name, 'trial%02d.tfrecords' % t)
+            records.convert_data_to_tfrecords(
+                {'eeg': eeg, 'intensity': intensity}, path)
+            nbytes += os.path.getsize(path)
+            if s < short_subjects and t < short_trials:
+                os.makedirs(os.path.join(short_root, name), exist_ok=True)
+                records.convert_data_to_tfrecords(
+                    {'eeg': eeg[:short_frames],
+                     'intensity': intensity[:short_frames]},
+                    os.path.join(short_root, name,
+                                 'trial%02d.tfrecords' % t))
+    return float(np.mean(rs)), nbytes
+
+
+def cohort_argv(post):
+    """The model flags of a ridge cohort run over the lambda grid."""
+    return ['--input_field', 'eeg', '--output_field', 'intensity',
+            '--post_context', str(post), '--regularization_list',
+            ','.join(repr(float(l)) for l in SWEEP_LAMBDAS)]
+
+
+def read_cohort_outputs(work, names):
+    """The cohort CSV's [lambdas, 3] rows and each subject's [lambdas,
+    trials] grid from its CSV (float32 values in shortest repr, so equal
+    grids read back equal)."""
+    summary = np.loadtxt(os.path.join(work, 'cohort.csv'), delimiter=',',
+                         skiprows=1, ndmin=2)
+    grids = {name: np.loadtxt(os.path.join(work, 'subject_%s.csv' % name),
+                              delimiter=',', ndmin=2)[:, 1:]
+             for name in names}
+    return summary, grids
+
+
+def run_cohort(torch, subjects, work, device, post=POST, extra=(),
+               environment=None):
+    """One in-process run of ``cli.cohort.main`` over ``subjects`` (a
+    {name: dir} dict, passed as --subject_dir); returns its outputs, the
+    printed table, seconds, K2's launches and the card's peak
+    allocation."""
+    import io
+    from telluride_decoding_torch.cli import cohort
+    from telluride_decoding_torch.ops.lagstack import lag_stack
+    shutil.rmtree(work, ignore_errors=True)
+    argv = [a for d in subjects.values() for a in ('--subject_dir', d)]
+    argv += cohort_argv(post) + list(extra) + [
+        '--cohort_csv_file', os.path.join(work, 'cohort.csv'),
+        '--results_csv_file', os.path.join(work, 'subject.csv'),
+        '--device', str(device)]
+    on_card = torch.device(device).type == 'cuda'
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    before = lag_stack.launches
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with environ(**(environment or {})), contextlib.redirect_stdout(out):
+        rc = cohort.main(argv)
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError('cli.cohort.main returned %d' % rc)
+    text = out.getvalue()
+    table = text[text.index('Cohort sweep over'):].strip()
+    summary, grids = read_cohort_outputs(work, subjects)
+    for name, grid in grids.items():
+        if not np.all(np.isfinite(grid)):
+            raise AssertionError('cohort subject %s: non-finite '
+                                 'correlations' % name)
+    return dict(summary=summary, grids=grids, table=table, seconds=seconds,
+                launches=lag_stack.launches - before,
+                peak_gb=(torch.cuda.max_memory_allocated() / 1e9
+                         if on_card else None))
+
+
+def run_partitions(subjects, work, device, count=2):
+    """``count`` processes of ``python -m telluride_decoding_torch.cli.
+    cohort --num_partitions count`` on the one card, started together and
+    joined through part files by partition 0; returns partition 0's
+    cohort CSV rows, its stdout and the seconds until both ended."""
+    shutil.rmtree(work, ignore_errors=True)
+    base = [sys.executable, '-m', 'telluride_decoding_torch.cli.cohort']
+    base += [a for d in subjects.values() for a in ('--subject_dir', d)]
+    base += cohort_argv(POST) + [
+        '--device', str(device), '--num_partitions', str(count),
+        '--partition_dir', os.path.join(work, 'parts')]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        base + ['--partition_index', str(i), '--cohort_csv_file',
+                os.path.join(work, 'cohort_%d.csv' % i)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for i in range(count)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError('partition %d exited %d:\n%s'
+                                 % (i, p.returncode, out[-3000:]))
+    if 'Cohort sweep over %d partitions' % count not in outs[0]:
+        raise AssertionError('partition 0 printed no joined summary:\n%s'
+                             % outs[0][-3000:])
+    summary = np.loadtxt(os.path.join(work, 'cohort_0.csv'), delimiter=',',
+                         skiprows=1, ndmin=2)
+    return summary, outs[0], seconds
+
+
+def cohort_options():
+    """The linear cohort's DecodingOptions and lambdas, as cli.cohort.main
+    parses them."""
+    from telluride_decoding_torch.cli import cohort, decoding, regression
+    args = cohort.build_parser().parse_args(cohort_argv(POST))
+    opts = decoding.DecodingOptions().set_flags(args)
+    opts.dnn_regressor = 'linear'
+    return opts, regression.parse_regularization_values(
+        args.regularization_list)
+
+
+def cohort_subject_stages(device, name, data_dir, pads):
+    """One subject of the cohort swept alone, unpipelined, with its
+    stages timed (read: the prefetch worker's TFRecord load; moments and
+    grid with the card synchronised): the per-subject cost the pipelined
+    run's wall time is held against. Returns the stage seconds and the
+    grid."""
+    from telluride_decoding_torch.cli import cohort
+    from telluride_decoding_torch.sweep import engine
+    from telluride_decoding_torch.utils.profiling import StageTimer
+    opts, lambdas = cohort_options()
+    timer = StageTimer('cohort subject')
+    with timer.stage('read'):
+        _, (xs, ys) = cohort._load_subject(name, data_dir, opts, True, 'cpu')
+    result = engine.ridge_jackknife_sweep(
+        xs, ys, lambdas, context=cohort.cohort_context(opts),
+        pad_files_to=pads[0], pad_frames_to=pads[1], device=device,
+        timer=timer)
+    return timer.as_dict(), result.correlations
+
+
+def sweep_preloaded(torch, device, subjects):
+    """The cohort loaded eagerly (timed), then the pipelined
+    ``multi_subject_sweep`` over the loaded arrays with no reading thread
+    beside it (timed with the card synchronised): what the pipeline costs
+    when no read competes with it. Returns both seconds and the grids."""
+    from telluride_decoding_torch.cli import cohort
+    from telluride_decoding_torch.sweep import engine
+    opts, lambdas = cohort_options()
+    t0 = time.perf_counter()
+    loaded, context = cohort.load_cohort(subjects, opts, device)
+    load_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = engine.multi_subject_sweep(loaded, lambdas, context=context,
+                                         device=device)
+    torch.cuda.synchronize()
+    return load_s, time.perf_counter() - t0, {
+        name: res.correlations for name, res in results.items()}
+
+
+def max_grid_diff(got, want):
+    """The largest difference between ``got``'s grids and ``want``'s
+    grids of the same subjects."""
+    return max(float(np.max(np.abs(got[name] - want[name])))
+               for name in got)
+
+
+def phase_cohort(torch, device, smi):
+    """The whole-cohort sweep at the codelab's full width through
+    ``cli.cohort.main``: 22 subjects x 40 trials, 9 lambdas (7,920 ridge
+    fits) at 69 x 37 = 2553 columns, raw channels to the card and each
+    trial lag-stacked there by K2. Gates: K2 launched once a trial, finite
+    grids of every subject, the best lambda's cohort mean r above the
+    planted matched filter's less SWEEP_MARGIN. On the first COHORT_FEW
+    subjects: eager loading bit-identical to streaming, a CCA cohort
+    (the jens_memory_cca fields; finite, above the same gate), two
+    partition processes whose joined cohort CSV is within PARTITION_TOL
+    of the single run's, and host lag stacking (TDT_DEVICE_CONTEXT=0, on
+    COHORT_HOST subjects) within SWEEP_TOL; the short copy on card and
+    CPU within SWEEP_TOL."""
+    from telluride_decoding_torch.cli import cohort, decoding
+    start = time.perf_counter()
+    work = os.path.join(BUILD, 'cohort')
+    root = os.path.join(work, 'records')
+    short_root = os.path.join(work, 'records_short')
+    t0 = time.perf_counter()
+    matched_r, nbytes = cohort_corpus(root, short_root)
+    corpus_s = time.perf_counter() - t0
+    threshold = matched_r - SWEEP_MARGIN
+    log('phase 10 cohort corpus: %d subjects x %d trials, %.1f MB of '
+        'TFRecords written in %.1f s; planted matched filter r %.4f'
+        % (COHORT_SUBJECTS, COHORT_TRIALS, nbytes / 1e6, corpus_s,
+           matched_r))
+    subjects = cohort.discover_subjects(root, [])
+    names = list(subjects)
+
+    read_launches = reset_launches()
+    main = run_cohort(torch, subjects, os.path.join(work, 'linear'), device)
+    launches = read_launches()
+    require_launched(launches, ('lag_stack',), 'cohort')
+    if main['launches'] != COHORT_SUBJECTS * COHORT_TRIALS:
+        raise AssertionError('cohort: K2 launched %d times for %d trials'
+                             % (main['launches'],
+                                COHORT_SUBJECTS * COHORT_TRIALS))
+    if not main['table'].startswith('Cohort sweep over %d subjects, %d '
+                                    'lambdas:' % (COHORT_SUBJECTS,
+                                                  SWEEP_LAMBDAS.size)):
+        raise AssertionError('cohort table: %s' % main['table'])
+    for name, grid in main['grids'].items():
+        if grid.shape != (SWEEP_LAMBDAS.size, COHORT_TRIALS):
+            raise AssertionError('cohort %s: grid shape %s'
+                                 % (name, grid.shape))
+    best = float(np.max(main['summary'][:, 1]))
+    if not best > threshold:
+        raise AssertionError(
+            'cohort: best mean held-out r %.4f is not above %.4f (the '
+            'matched filter %.4f less %g)' % (best, threshold, matched_r,
+                                              SWEEP_MARGIN))
+    pads = cohort.prescan_cohort(
+        subjects, decoding.DecodingOptions(input_field='eeg',
+                                           output_field='intensity'))
+    stages, alone = cohort_subject_stages(device, names[0],
+                                          subjects[names[0]], pads)
+    alone_differs = float(np.max(np.abs(alone - main['grids'][names[0]])))
+    if alone_differs > SWEEP_TOL:
+        raise AssertionError('cohort: subject %s swept alone differs from '
+                             'its cohort grid by %g' % (names[0],
+                                                        alone_differs))
+    per_subject = sum(stages.values())
+    load_s, sweep_s, preloaded = sweep_preloaded(torch, device, subjects)
+    preloaded_differs = max_grid_diff(preloaded, main['grids'])
+    if preloaded_differs > SWEEP_TOL:
+        raise AssertionError('cohort: the sweep of the preloaded cohort '
+                             'differs by %g' % preloaded_differs)
+    busy = device_busy(torch, lambda: run_cohort(
+        torch, subjects, os.path.join(work, 'linear_profiled'), device))
+    log('phase 10 cohort linear: %d subjects x %d trials x %d lambdas = %d '
+        'ridge fits at %d columns on the card: %.2f s; one subject alone '
+        '(unpipelined): read %.1f ms, moments %.1f ms, grid %.1f ms, so %d '
+        'subjects in series %.2f s (the pipelined run takes %.3f of it); '
+        'the cohort loaded first in %.2f s, then swept in %.2f s with no '
+        'reading thread (grids within %.3g); '
+        'profiled rerun %s; peak allocated %s; K2 launches %d; best mean '
+        'held-out r %.4f (gate %.4f: the planted matched filter %.4f less '
+        '%g); subject %s alone within %.3g of its cohort grid; %s'
+        % (COHORT_SUBJECTS, COHORT_TRIALS, SWEEP_LAMBDAS.size,
+           COHORT_SUBJECTS * COHORT_TRIALS * SWEEP_LAMBDAS.size,
+           IN1_CHANNELS * (PRE + 1 + POST), main['seconds'],
+           1e3 * stages['read'], 1e3 * stages['moments'],
+           1e3 * stages['grid'], COHORT_SUBJECTS,
+           COHORT_SUBJECTS * per_subject,
+           main['seconds'] / (COHORT_SUBJECTS * per_subject), load_s,
+           sweep_s, preloaded_differs, fmt_busy(busy), fmt_gb(main['peak_gb']), main['launches'], best,
+           threshold, matched_r, SWEEP_MARGIN, names[0], alone_differs,
+           smi))
+
+    few = {name: subjects[name] for name in names[:COHORT_FEW]}
+    stream = run_cohort(torch, few, os.path.join(work, 'few_stream'),
+                        device)
+    eager = run_cohort(torch, few, os.path.join(work, 'few_eager'), device,
+                       extra=['--nostreaming_cohort'])
+    for name in few:
+        if not np.array_equal(stream['grids'][name], eager['grids'][name]):
+            raise AssertionError(
+                'cohort subject %s: eager and streaming grids differ by %g'
+                % (name, float(np.max(np.abs(stream['grids'][name] -
+                                             eager['grids'][name])))))
+    if not np.array_equal(stream['summary'], eager['summary']):
+        raise AssertionError('cohort CSV: eager and streaming differ')
+    log('phase 10 cohort %d subjects, streaming against --nostreaming_'
+        'cohort: bit-identical grids and cohort CSV; streaming %.2f s '
+        '(peak %s), eager %.2f s (peak %s); %s'
+        % (COHORT_FEW, stream['seconds'], fmt_gb(stream['peak_gb']),
+           eager['seconds'], fmt_gb(eager['peak_gb']), smi))
+
+    cca = run_cohort(torch, few, os.path.join(work, 'few_cca'), device,
+                     extra=['--dnn_regressor', 'cca', '--input2_field',
+                            'intensity', '--input2_pre_context', '15',
+                            '--input2_post_context', '15',
+                            '--output_field', 'eeg', '--cca_dimensions',
+                            '5'])
+    cca_best = float(np.max(cca['summary'][:, 1]))
+    if cca['launches'] != 2 * COHORT_FEW * COHORT_TRIALS:
+        raise AssertionError('CCA cohort: K2 launched %d times'
+                             % cca['launches'])
+    if not cca_best > threshold:
+        raise AssertionError('CCA cohort: best mean held-out r %.4f is not '
+                             'above %.4f' % (cca_best, threshold))
+    log('phase 10 cohort CCA (jens_memory_cca fields, intensity lags '
+        '15/15, %d subjects): %d fits in %.2f s; best mean held-out r %.4f '
+        '(gate %.4f); K2 launches %d; peak allocated %s; %s'
+        % (COHORT_FEW, COHORT_FEW * COHORT_TRIALS * SWEEP_LAMBDAS.size,
+           cca['seconds'], cca_best, threshold, cca['launches'],
+           fmt_gb(cca['peak_gb']), smi))
+
+    joined, _, part_s = run_partitions(few, os.path.join(work, 'parts'),
+                                       device)
+    joined_differs = float(np.max(np.abs(joined - stream['summary'])))
+    # The JAX suite's own criterion for its partitioned driver
+    # (assert_allclose: atol 1e-6 and its default rtol 1e-7, which
+    # admits a flip of the sixth significant digit %g prints).
+    if not np.allclose(joined, stream['summary'], rtol=1e-7,
+                       atol=PARTITION_TOL):
+        raise AssertionError('partitioned cohort CSV differs from the '
+                             'single run by %g' % joined_differs)
+    log('phase 10 cohort partitioned: 2 processes of python -m '
+        'telluride_decoding_torch.cli.cohort on the one card, %d subjects, '
+        'joined through part files in %.2f s (process start included); '
+        'cohort CSV within %.3g of the single run (limit %g + 1e-7 '
+        'relative); %s' % (COHORT_FEW, part_s, joined_differs,
+                           PARTITION_TOL, smi))
+
+    two = {name: subjects[name] for name in names[:COHORT_HOST]}
+    host = run_cohort(torch, two, os.path.join(work, 'host'), device,
+                      environment={'TDT_DEVICE_CONTEXT': '0'})
+    host_differs = max_grid_diff(host['grids'], stream['grids'])
+    if host_differs > SWEEP_TOL:
+        raise AssertionError('cohort: host stacking and device context '
+                             'differ by %g' % host_differs)
+    log('phase 10 cohort host-stacked (TDT_DEVICE_CONTEXT=0, %d subjects): '
+        '%.2f s, peak allocated %s; grids within %.3g of the device '
+        'context run; %s' % (COHORT_HOST, host['seconds'],
+                             fmt_gb(host['peak_gb']), host_differs, smi))
+
+    short_subjects = cohort.discover_subjects(short_root, [])
+    post = COHORT_SHORT[3]
+    card = run_cohort(torch, short_subjects, os.path.join(work, 'short_card'),
+                      device, post=post)
+    cpu = run_cohort(torch, short_subjects, os.path.join(work, 'short_cpu'),
+                     'cpu', post=post)
+    short_differs = max(max_grid_diff(card['grids'], cpu['grids']),
+                        float(np.max(np.abs(card['summary'] -
+                                            cpu['summary']))))
+    if short_differs > SWEEP_TOL:
+        raise AssertionError('cohort short copy: card and CPU differ by %g'
+                             % short_differs)
+    log('phase 10 cohort short copy (%d subjects x %d trials x %d frames, '
+        'post %d): card %.2f s, CPU %.2f s; grids and cohort CSV within '
+        '%.3g; %s' % (COHORT_SHORT + (card['seconds'], cpu['seconds'],
+                                      short_differs, smi)))
+    shutil.rmtree(work, ignore_errors=True)
+    log('phase 10 cohort: %.1f s in all; launches %s; %s'
+        % (time.perf_counter() - start, launches, smi))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1509,8 +1918,9 @@ def main():
     kuleuven = phase_ingest_slice(torch, device, smi, k3['ms'])
     decoding, k1_frame_scores = phase_decoding(torch, device, smi)
     sweep = phase_sweep(torch, device, smi)
+    cohort = phase_cohort(torch, device, smi)
     launches = {name: codelab[name] + kuleuven[name] + decoding[name] +
-                sweep[name] for name in kuleuven}
+                sweep[name] + cohort[name] for name in kuleuven}
     common = dict(route='cuda', library_ms=None)
     kernels = [
         dict(name='fused_cca_decode',

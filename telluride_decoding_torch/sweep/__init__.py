@@ -5,6 +5,8 @@ from telluride_decoding_torch.sweep.engine import (
     ContextSpec,
     SweepResult,
     cca_jackknife_sweep,
+    cohort_summary,
+    multi_subject_sweep,
     pad_and_stack,
     per_file_stats,
     ridge_jackknife_sweep,

@@ -26,8 +26,12 @@ lags never cross file boundaries.
 NaNs. The programs factor with ``cholesky_ex`` and turn a failed factor
 into NaNs, with no exception and no host sync inside the grid, so
 ``_finalize_sweep`` reaches the eig program exactly where the JAX
-package does. The port runs on one device; the JAX package's mesh
-sharding and multi-subject sweep are not ported yet.
+package does.
+
+``multi_subject_sweep`` runs a whole cohort, subject after subject, in
+the JAX package's depth-2 pipeline. The port runs on one device; the
+JAX package's mesh paths (the file axis sharded within a subject, the
+subject axis sharded over devices) are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -660,8 +665,12 @@ class _InFlightSweep(NamedTuple):
 def _dispatch_sweep(model: str, per_file_x, per_file_y, lambdas,
                     file_names=None, use_ridge=True, pad_files_to=None,
                     pad_frames_to=None, context=None, device='cuda',
-                    timer=None) -> _InFlightSweep:
-    """Moments and the grid for one file set, not yet read back."""
+                    timer=None, before_grid: Optional[Callable[[], None]]
+                    = None) -> _InFlightSweep:
+    """Moments and the grid for one file set, not yet read back.
+    ``before_grid`` runs between the two (the cohort pipeline finalizes
+    the previous subject there, so its buffers are freed before this
+    grid allocates)."""
     device = device_policy.resolve(device)
     num_real = len(per_file_x)
     per_file_y = [_ensure_2d(y) for y in per_file_y]
@@ -685,6 +694,8 @@ def _dispatch_sweep(model: str, per_file_x, per_file_y, lambdas,
                                  pad_frames_to=pad_frames_to,
                                  context=context, device=device)
         total = MomentStats(*(s.sum(0) for s in stacked))
+    if before_grid is not None:
+        before_grid()
     with _stage(timer, 'grid', device):
         if model == 'cca':
             corr = _cca_sweep_program_chol(stacked, total, lambdas_arr)
@@ -760,3 +771,84 @@ def cca_jackknife_sweep(per_file_x: Sequence, per_file_y: Sequence,
         'cca', per_file_x, per_file_y, lambdas, file_names=file_names,
         pad_files_to=pad_files_to, pad_frames_to=pad_frames_to,
         context=context, device=device, timer=timer), timer)
+
+
+def multi_subject_sweep(subjects, lambdas: Sequence[float],
+                        model: str = 'ridge', dims: int = 5,
+                        use_ridge: bool = True,
+                        shared_shapes: bool = True,
+                        subject_parallel: bool = False,
+                        context: Optional[ContextSpec] = None,
+                        pad_files_to: Optional[int] = None,
+                        pad_frames_to: Optional[int] = None,
+                        device='cuda') -> Dict[str, SweepResult]:
+    """Per-subject jackknife x lambda grids for a whole cohort (JAX
+    engine.py:1128-1235, without ``mesh``).
+
+    ``subjects`` maps subject name -> (per_file_x, per_file_y): a dict
+    or list of (name, (xs, ys)) pairs (eager), or any other iterable of
+    such pairs, consumed one subject at a time (streaming: a prefetching
+    loader keeps about two subjects on the host). Files never mix across
+    subjects. With ``shared_shapes`` every subject pads to the cohort's
+    (max files, max frames), frames in common (zip-truncated) units when
+    ``context`` is set; eager callers may omit the pads, a lazy iterable
+    must give both. A subject larger than the declared pads still
+    computes correctly at its own shape. Returns {subject: SweepResult}
+    with the padding sliced away.
+
+    The loop is the JAX package's depth-2 pipeline: subject k+1's
+    moments are dispatched, subject k is read back (and retried through
+    the eig program if its Cholesky grid failed) and dropped, then
+    subject k+1's grid runs. ``subject_parallel`` shards subjects over a
+    mesh in the JAX package; on one device it runs serially there too.
+    """
+    del dims, subject_parallel
+    device = device_policy.resolve(device)
+    if hasattr(subjects, 'items'):
+        items = list(subjects.items())
+    elif isinstance(subjects, (list, tuple)):
+        items = list(subjects)
+    else:
+        items = None   # Lazy iterable: consume subject by subject.
+    # With a context spec the arrays are raw and pad_frames_to is in
+    # common-axis units: n_i = raw x length - x_post.
+    x_post = context.x_post if context is not None else 0
+    if items is None:
+        if shared_shapes and (pad_files_to is None
+                              or pad_frames_to is None):
+            raise ValueError(
+                'multi_subject_sweep got a lazy subject iterable: '
+                'shared program shapes cannot be derived without '
+                'materializing every subject, so pass pad_files_to '
+                'AND pad_frames_to explicitly (or pass a dict/list).')
+        items = subjects
+    elif shared_shapes and len(items) > 1:
+        if pad_files_to is None:
+            pad_files_to = max(len(xs) for _, (xs, _) in items)
+        if pad_frames_to is None:
+            pad_frames_to = max(x.shape[0] for _, (xs, _) in items
+                                for x in xs) - x_post
+    results = {}
+    pending: List[Tuple[str, _InFlightSweep]] = []
+
+    def finalize_pending():
+        while pending:
+            name, inflight = pending.pop()
+            results[name] = _finalize_sweep(inflight)
+
+    for name, (xs, ys) in items:
+        pending.append((name, _dispatch_sweep(
+            'cca' if model == 'cca' else 'ridge', xs, ys, lambdas,
+            use_ridge=use_ridge, pad_files_to=pad_files_to,
+            pad_frames_to=pad_frames_to, context=context, device=device,
+            before_grid=finalize_pending)))
+    finalize_pending()
+    return results
+
+
+def cohort_summary(results) -> Tuple[np.ndarray, np.ndarray]:
+    """Mean/std correlation per lambda across all subjects' held-out
+    files (the codelab's cross-subject analysis)."""
+    all_corr = np.concatenate([r.correlations for r in results.values()],
+                              axis=1)
+    return np.mean(all_corr, axis=1), np.std(all_corr, axis=1)

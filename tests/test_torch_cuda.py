@@ -362,3 +362,47 @@ def test_sweep_grid_on_card_matches_cpu(cuda, grid):
     assert np.isfinite(got.correlations).all()
     np.testing.assert_allclose(got.correlations, want.correlations,
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cohort_on_card_matches_cpu(cuda, tmp_path):
+    """cli.cohort's sweep over a tiny ragged cohort on the card (K2 once
+    a trial) against the same sweep on the CPU: grids and summary within
+    1e-4; streaming and eager loading bit-identical on the card."""
+    from telluride_decoding_torch.cli import cohort, decoding
+    from telluride_decoding_torch.data import records
+    rng = np.random.RandomState(11)
+    w = rng.randn(69 * 9, 1).astype(np.float32) / np.sqrt(69 * 9)
+    for s in range(3):
+        d = tmp_path / ('subject%02d' % s)
+        d.mkdir()
+        for t in range(4):
+            n = 900 + 37 * t + 11 * s
+            eeg = rng.randn(n, 69).astype(np.float32)
+            intensity = (lagstack.lag_stack_np(eeg, 0, 8) @ w +
+                         0.3 * rng.randn(n, 1)).astype(np.float32)
+            records.convert_data_to_tfrecords(
+                {'eeg': eeg, 'intensity': intensity},
+                str(d / ('trial%02d.tfrecords' % t)))
+    my_flags = decoding.DecodingOptions(
+        input_field='eeg', output_field='intensity', post_context=8,
+        dnn_regressor='linear', attended_field='')
+    subjects = cohort.discover_subjects(str(tmp_path), [])
+    lambdas = list(np.logspace(-6, 2, 9))
+    before = lagstack.lag_stack.launches
+    got, (mean, std) = cohort.run_cohort_sweep(my_flags, subjects, lambdas,
+                                               device=cuda)
+    assert lagstack.lag_stack.launches - before == 12
+    eager, _ = cohort.run_cohort_sweep(my_flags, subjects, lambdas,
+                                       streaming=False, device=cuda)
+    want, (want_mean, want_std) = cohort.run_cohort_sweep(
+        my_flags, subjects, lambdas, device='cpu')
+    for name in want:
+        assert np.isfinite(got[name].correlations).all()
+        np.testing.assert_array_equal(got[name].correlations,
+                                      eager[name].correlations)
+        np.testing.assert_allclose(got[name].correlations,
+                                   want[name].correlations, rtol=0,
+                                   atol=1e-4)
+    np.testing.assert_allclose(mean, want_mean, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(std, want_std, rtol=0, atol=1e-4)

@@ -115,6 +115,8 @@ def test_import_leaves_jax_out():
         'import telluride_decoding_torch.cli.serve\n'
         'import telluride_decoding_torch.cli.regression_data\n'
         'import telluride_decoding_torch.cli.regression\n'
+        'import telluride_decoding_torch.cli.cohort\n'
+        'import telluride_decoding_torch.parallel.multihost\n'
         'import telluride_decoding_torch.sweep.engine\n'
         'import telluride_decoding_torch.sweep.checkpoint\n'
         'import telluride_decoding_torch.utils.csv_util\n'
