@@ -41,7 +41,16 @@ drives the two main paths once:
   trial) -> the cohort CSV, the per-subject CSVs and the summary table;
   then, on its first subjects, eager against streaming loading, a CCA
   cohort, two partition processes joined through part files, and host
-  lag stacking.
+  lag stacking;
+
+  attention path, at codelab width: a seeded two-speaker corpus (3 train
+  files attending speaker 1, an 18000-frame test file whose attention
+  switches three times) -> a CCA model through ``cli.decoding.main`` ->
+  ``cli.infer.main --comparison_test`` (reductions first and lda x
+  decision rules wta, stepped and ssd x windows of 10 to 1000 frames:
+  K1 twice a pair, the state-space decoder's kernel S1 once a window)
+  -> the codelab stream served with ``--serve_decoder ssd``, synchronous
+  and pipelined -> one TCP session of ``serve_socket`` -> ``--selftest``.
 
 Decisions must track the planted switch, served scores must match a
 CPU decode of the same stream with the plain versions, the decoding
@@ -51,7 +60,12 @@ copy and host lag stacking at full width, with the best lambda's mean
 held-out r above the planted TRF's matched filter's less a margin. The
 cohort's best mean r meets the same gate; its streaming and eager runs
 must give bit-identical grids, its partitioned run the single run's
-cohort CSV, and its short copy the CPU's grids.
+cohort CSV, and its short copy the CPU's grids. The infer sweep's lda +
+wta accuracy must be above 0.9 at windows of 400 frames or more, and its
+accuracies equal the same sweep's on the CPU (ssd within one window's
+share); both serving modes and the TCP session must give the same
+decisions; S1 must match its plain version on the card over the test
+file's windows.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -113,6 +127,17 @@ HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, data sheet.
 FP32_FLOPS = 67e12                             # fp32 on the CUDA cores, same.
 SERVE_ROWS = 32                                # Frames in a served chunk.
 F32_SYMBOL = 'fused_cca_decode_cluster_kernel'  # K1's float32 kernel.
+# Phase 11: the state-space decoder (kernel S1) and the infer sweep. The
+# infer corpus: train files attending speaker 1, a test file whose
+# attention switches every INFER_SEGMENT frames (three switches).
+S1_SYMBOL = 'ssd_update_kernel'
+SSD_TOL = 1e-4                                 # z, eta, p, bounds: S1 vs plain.
+SSD_ERROR_BAR = 0.15                           # tests/test_attention_decoder.py.
+INFER_TRAIN_FILES, INFER_SEGMENT, INFER_SEGMENTS = 3, 4500, 4
+INFER_GATE = 0.9                               # lda + wta at >= 400 frames.
+# Window sizes of the CPU's ssd sweep (the plain SSD takes about 0.2 s a
+# window on a CPU, so the CPU check of ssd covers the large windows).
+INFER_CPU_SSD_SIZES = [700, 1000]
 REPO = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(REPO, 'build')
 
@@ -307,7 +332,8 @@ def phase_device(torch):
             spills = line.strip()
         elif entry and 'registers' in line and (
                 'lag_stack' in entry or F32_SYMBOL in entry or
-                'envelope' in entry or 'mma' in entry):
+                'envelope' in entry or 'mma' in entry or
+                'ssd' in entry):
             log('phase 1 ptxas: %s: %s; %s' % (
                 entry, line.split(':', 1)[1].strip(), spills))
             entry = None
@@ -772,8 +798,10 @@ def reset_launches():
     from telluride_decoding_torch.ops.fused_frontend import (
         fused_envelope_lagstack)
     from telluride_decoding_torch.ops.lagstack import lag_stack
+    from telluride_decoding_torch.ops.ssd_update import ssd_update
     counters = {'fused_cca_decode': fused_cca_decode, 'lag_stack': lag_stack,
-                'fused_envelope_lagstack': fused_envelope_lagstack}
+                'fused_envelope_lagstack': fused_envelope_lagstack,
+                'ssd_update': ssd_update}
     for fn in counters.values():
         fn.launches = 0
     return lambda: {name: fn.launches for name, fn in counters.items()}
@@ -1901,6 +1929,415 @@ def phase_cohort(torch, device, smi):
     return launches
 
 
+def infer_corpus(data_dir, seed=11, channels=IN1_CHANNELS,
+                 train_files=INFER_TRAIN_FILES, frames=TRAIN_FRAMES,
+                 segment=INFER_SEGMENT, segments=INFER_SEGMENTS):
+    """The infer sweep's two-speaker corpus as TFRecords with the fields
+    eeg, intensity, intensity2 and attend: ``train_files`` files of
+    ``frames`` frames attending speaker 1 (train_00 ..), and one test
+    file whose attended speaker alternates every ``segment`` frames,
+    speaker 1 first (test_00)."""
+    from telluride_decoding_torch.data import records
+    rng = np.random.RandomState(seed)
+    trf = planted_trf(rng, channels)
+
+    def recording(n, labels):
+        a1, a2 = _speaker(rng, n), _speaker(rng, n)
+        attended = np.where(labels[:, None] > 0, a2, a1)[:, 0]
+        clean = np.stack([np.convolve(attended, trf[c])[:n]
+                          for c in range(channels)], axis=1)
+        eeg = (clean + 2.0 * rng.randn(n, channels)).astype(np.float32)
+        return {'eeg': eeg, 'intensity': a1, 'intensity2': a2,
+                'attend': labels.astype(np.float32)[:, None]}
+    shutil.rmtree(data_dir, ignore_errors=True)
+    for i in range(train_files):
+        records.convert_data_to_tfrecords(
+            recording(frames, np.zeros(frames)),
+            os.path.join(data_dir, 'train_%02d.tfrecords' % i))
+    labels = (np.arange(segment * segments) // segment) % 2
+    records.convert_data_to_tfrecords(
+        recording(labels.size, labels),
+        os.path.join(data_dir, 'test_00.tfrecords'))
+    return labels
+
+
+def train_infer_model(data_dir, model_dir, device):
+    """A CCA model at codelab width through ``cli.decoding.main`` on the
+    train files, the LDA trained on them too (the test file stays
+    unseen); returns seconds."""
+    import io
+    from telluride_decoding_torch.cli import decoding
+    shutil.rmtree(model_dir, ignore_errors=True)
+    argv = ['--tfexample_dir', data_dir, '--input_field', 'eeg',
+            '--output_field', 'intensity', '--attended_field', 'attend',
+            '--input2_field', 'intensity', '--dnn_regressor', 'cca',
+            '--pre_context', str(PRE), '--post_context', str(POST),
+            '--input2_pre_context', str(IN2_PRE), '--input2_post_context',
+            str(IN2_POST), '--cca_dimensions', str(CCA_DIMS),
+            '--streaming_fit', '--regularization_lambda', '0.001',
+            '--train_file_pattern', 'train', '--validate_file_pattern',
+            'train', '--test_file_pattern', 'train',
+            '--correlation_frames', '100', '--summary_dir',
+            model_dir + '_summary', '--saved_model_dir', model_dir,
+            '--device', str(device)]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = decoding.main(argv)
+    if rc != 0:
+        raise AssertionError('cli.decoding.main returned %d' % rc)
+    return time.perf_counter() - t0
+
+
+def start_cpu_infer(data_dir, model_dir, out_path):
+    """The same sweep on the CPU in a process of its own (plain versions;
+    wta and stepped at every size, ssd at INFER_CPU_SSD_SIZES), started
+    now so that it runs beside the card's work; returns the process."""
+    code = (
+        'import json, sys, torch\n'
+        'torch.set_num_threads(4)\n'
+        'from telluride_decoding_torch.cli import infer\n'
+        'a = json.loads(sys.argv[1])\n'
+        'out = {}\n'
+        'for decoders, sizes in ((["wta", "stepped"], a["sizes"]),\n'
+        '                        (["ssd"], a["ssd_sizes"])):\n'
+        '    got = infer.run_comparison_test(\n'
+        '        a["model"], a["data"], ["train"], ["test"], "intensity",\n'
+        '        "intensity2", None, reduction_list=["first", "lda"],\n'
+        '        decoder_list=decoders, window_list=sizes, device="cpu")\n'
+        '    out.update({"%s %s" % k: v for k, v in got.items()})\n'
+        'with open(a["out"], "w") as f:\n'
+        '    json.dump(out, f)\n')
+    from telluride_decoding_torch.cli import infer
+    args = json.dumps(dict(model=model_dir, data=data_dir, out=out_path,
+                           sizes=infer.WINDOW_LIST,
+                           ssd_sizes=INFER_CPU_SSD_SIZES))
+    return subprocess.Popen(
+        [sys.executable, '-c', code, args], cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES=''),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+
+def run_infer_main(data_dir, model_dir, device):
+    """``cli.infer.main --comparison_test`` on the card; returns
+    {(reduction, decoder): (accuracy dict, seconds)}."""
+    import io
+    from telluride_decoding_torch.cli import infer
+    runs = {}
+    run_reduction_test = infer.run_reduction_test
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        result = run_reduction_test(*args, **kwargs)
+        runs[(args[4], args[5])] = (result, time.perf_counter() - t0)
+        return result
+    infer.run_reduction_test = timed
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = infer.main(['--tf_dir', data_dir, '--model_dir', model_dir,
+                             '--train_files', 'train', '--test_files',
+                             'test', '--audio_label', 'intensity',
+                             '--comparison_test', '--device', str(device)])
+    finally:
+        infer.run_reduction_test = run_reduction_test
+    if rc != 0 or len(runs) != 6:
+        raise AssertionError('cli.infer.main: rc %s, %d pairs' % (rc,
+                                                                  len(runs)))
+    return runs
+
+
+def check_infer(card, cpu, test_frames):
+    """The gates of the sweep: lda + wta above INFER_GATE at windows of
+    400 frames or more; the card's dicts equal the CPU's for wta and
+    stepped, and within one window's share for ssd where the CPU ran it."""
+    accuracy = card[('lda', 'wta')][0]
+    low = {size: a for size, a in accuracy.items()
+           if size >= 400 and not a > INFER_GATE}
+    if low:
+        raise AssertionError('lda + wta accuracy %s is not above %g'
+                             % (low, INFER_GATE))
+    worst = 0.0
+    for key, want in cpu.items():
+        reduction, decoder = key.split()
+        got = card[(reduction, decoder)][0]
+        for size, value in want.items():
+            size = int(size)
+            windows = (test_frames - size) // (size // 2) + 1
+            diff = abs(got[size] - value)
+            limit = 1.0 / windows if decoder == 'ssd' else 0.0
+            if diff > limit + 1e-12:
+                raise AssertionError('%s at %d frames: card %r, CPU %r'
+                                     % (key, size, got[size], value))
+            worst = max(worst, diff)
+    return worst
+
+
+def serve_decisions(model_dir, stream_path, device, pipeline):
+    """``cli.serve.main --serve_decoder ssd`` over a stream file;
+    returns (decisions, summary, seconds)."""
+    from telluride_decoding_torch.cli import serve
+    out = os.path.join(model_dir, 'decisions_ssd_%d.jsonl' % pipeline)
+    argv = ['--serve_model_dir', model_dir, '--serve_input', stream_path,
+            '--serve_output', out, '--chunk_size', str(SERVE_ROWS),
+            '--serve_decoder', 'ssd', '--serve_device', str(device)]
+    t0 = time.perf_counter()
+    serve.main(argv + (['--serve_pipeline'] if pipeline else []))
+    seconds = time.perf_counter() - t0
+    with open(out) as f:
+        lines = [json.loads(line) for line in f]
+    return [l for l in lines if 'window' in l], lines[-1], seconds
+
+
+def ssd_tracking_error(decisions, switch_s, k_w, k_b):
+    """Share of decisions on the wrong side of the planted switch, each
+    counted at its fixed lag: window i decides window i - k_b."""
+    times = [d['time_s'] for d in decisions]
+    wrong = [decisions[i]['attend_speaker1'] == (times[i - k_b] >= switch_s)
+             for i in range(k_w, len(decisions))]
+    return float(np.mean(wrong))
+
+
+def tcp_session(model_dir, stream, device):
+    """One session of ``serve_socket`` on loopback (port 0,
+    max_sessions=1) with the stream as JSON lines of SERVE_ROWS frames;
+    returns (the session's decisions, serve_lines' on the same lines)."""
+    import io
+    import queue
+    import socket
+    import threading
+    from telluride_decoding_torch.cli import serve
+    eeg, a1, a2 = stream
+    lines = ''.join(json.dumps({'eeg': eeg[s:s + SERVE_ROWS].tolist(),
+                                'audio1': a1[s:s + SERVE_ROWS].tolist(),
+                                'audio2': a2[s:s + SERVE_ROWS].tolist()})
+                    + '\n' for s in range(0, eeg.shape[0], SERVE_ROWS))
+    bound, box = queue.Queue(), {}
+
+    def listen():
+        try:
+            box['counts'] = serve.serve_socket(
+                model_dir, 'tcp://127.0.0.1:0', device=device,
+                decision='ssd', max_sessions=1,
+                on_bound=lambda h, p: bound.put((h, p)))
+        except Exception as error:     # Reported by the main thread.
+            box['error'] = error
+            bound.put(None)
+    thread = threading.Thread(target=listen, daemon=True)
+    thread.start()
+    address = bound.get(timeout=120)
+    if address is None:
+        raise AssertionError('serve_socket failed: %r' % box.get('error'))
+    received = b''
+    with socket.create_connection(address, timeout=120) as conn:
+        conn.sendall(lines.encode())
+        conn.shutdown(socket.SHUT_WR)
+        while True:
+            chunk = conn.recv(1 << 16)
+            if not chunk:
+                break
+            received += chunk
+    thread.join(timeout=120)
+    if thread.is_alive() or 'error' in box:
+        raise AssertionError('serve_socket did not end its session: %r'
+                             % box.get('error'))
+    got = [json.loads(l) for l in received.decode().splitlines() if l]
+    want = serve.serve_lines(model_dir, io.StringIO(lines), device=device,
+                             decision='ssd')
+    if box['counts'] != [len(got)]:
+        raise AssertionError('session counts %s for %d decisions'
+                             % (box['counts'], len(got)))
+    return got, want
+
+
+def same_decisions(got, want):
+    keys = ('window', 'time_s', 'score1', 'score2', 'attend_speaker1')
+    return len(got) == len(want) > 0 and all(
+        [g[k] for k in keys] == [w[k] for k in keys]
+        for g, w in zip(got, want))
+
+
+def s1_against_plain(torch, device, model_dir, data_dir):
+    """S1 against its plain version on the card over the test file's
+    100-frame window scores (two speakers, lda): the decider runs S1 a
+    window, each window's input state is kept, and the plain version
+    replays every window from the same state in one batched call on the
+    card. Returns the numbers of the kernels line and the check."""
+    from telluride_decoding_torch.cli import infer
+    from telluride_decoding_torch.decide import attention_decoder
+    from telluride_decoding_torch.decode.infer_decoder import Decoder
+    from telluride_decoding_torch.ops import ssd_update as ops
+    decoder = infer.load_model(model_dir, 'lda', device)
+    _, bd1, _, bd2 = infer.get_data_for_model(
+        data_dir, ['train'], ['test'], decoder, 'intensity', 'intensity2',
+        include_train=False)
+    s1, l1 = decoder.frame_scores(bd1)
+    s2, _ = decoder.frame_scores(bd2)
+    c1, labels = Decoder.window_means(s1, l1, 100)
+    c2, _ = Decoder.window_means(s2, l1, 100)
+    dec = attention_decoder.create_attention_decoder('ssd', window_step=50,
+                                                     device=device)
+    first = infer.find_first_segment(labels)
+    dec.tune(c1[:first], c2[:first])
+    k_w = dec.k_w
+    sizes = ops._state_sizes(k_w)
+    states, rs, got, after = [], [], [], []
+    for a, b in zip(c1, c2):
+        before = ops.packed_buffer(dec._state, sizes).clone()
+        p = dec.attention(a, b)
+        if dec.calls >= k_w:
+            states.append(before)
+            rs.append((dec._r1_buf.copy(), dec._r2_buf.copy()))
+            got.append(p)
+            after.append(ops.packed_buffer(dec._state, sizes).clone())
+    r1 = torch.as_tensor(np.stack([r[0] for r in rs]), device=device)
+    r2 = torch.as_tensor(np.stack([r[1] for r in rs]), device=device)
+    consts = dec._constants()
+    new_state, _, _ = ops.ssd_update_reference(
+        ops.state_views(torch.stack(states), k_w), r1, r2, consts,
+        dec.outer_iter, dec.inner_iter, dec.newton_iter, k_w)
+    # The new states hold the window's z (z_smooth) and eta.
+    diff = (torch.stack(after) - ops.pack(list(new_state))).abs()
+    err = float(diff.max())
+    field_err = {f: float(getattr(ops.state_views(diff, k_w), f).max())
+                 for f in ops.SsdState._fields}
+    # p, lower, upper from the plain z and eta, as the decider forms them.
+    at = -1 - dec.k_f
+    z_at = new_state.z_smooth[:, at].cpu().numpy().astype(np.float64)
+    eta_at = new_state.eta[:, at].cpu().numpy().astype(np.float64)
+    half = dec.c0 * np.sqrt(np.maximum(eta_at, 0.0))
+    want = np.stack([1 / (1 + np.exp(-z_at)), 1 / (1 + np.exp(-(z_at - half))),
+                     1 / (1 + np.exp(-(z_at + half)))], 1)
+    have = np.array(got)
+    p_err = float(np.max(np.abs(have - want)))
+    clear = np.abs(want[:, 0] - 0.5) > SSD_TOL
+    same = np.array_equal(have[clear, 0] >= 0.5, want[clear, 0] >= 0.5)
+
+    def call():
+        return dec.attention(c1[0], c2[0])
+    host = host_ms(torch, call, reps=100)
+    ms = time_ms(torch, call, reps=50)
+    dev = device_ms(torch, call, S1_SYMBOL, reps=20)
+    state = ops.state_views(states[0].clone(), k_w)
+    plain_ms = time_ms(torch, lambda: ops.ssd_update_reference(
+        state, r1[0], r2[0], consts, dec.outer_iter, dec.inner_iter,
+        dec.newton_iter, k_w), reps=2, warmup=1)
+    # Bytes: state in and out, r1, r2, constants, z and eta. Operations:
+    # per EM round and window position about 30 (E-step), 16 (M-step
+    # sums), 10 Newton steps of 9 and 26 more (filter, smoother, eta).
+    num_bytes = 4 * (2 * (6 + 4 * k_w) + 2 * k_w + 9 + 2 * k_w)
+    flops = dec.outer_iter * k_w * (30 + 16 + dec.newton_iter * 9 + 26)
+    limit, limited_by = bound(num_bytes, flops)
+    log('phase 11 ssd_update (S1) k_w %d over %d windows of the test file: '
+        'the new states within %.3g of the plain version on the card (%s), '
+        'p and bounds within %.3g, %d decisions clear of 0.5 %s; per '
+        'window: call %.4f ms, host %.4f ms, on the device %s; plain '
+        'version on the card %.1f ms'
+        % (k_w, len(got), err, json.dumps(field_err), p_err,
+           int(clear.sum()), 'identical' if same else 'NOT identical', ms,
+           host, fmt_ms(dev), plain_ms))
+    if not (err <= SSD_TOL and p_err <= SSD_TOL and same):
+        raise AssertionError('ssd_update disagrees with its plain version '
+                             '(tolerance %g abs)' % SSD_TOL)
+    return dict(windows=len(got), k_w=k_w, ms=ms, host_ms=host,
+                device_ms=dev, plain_ms=plain_ms, bound_ms=limit,
+                bound_by=limited_by, max_abs_err=err)
+
+
+def phase_attention(torch, device, smi):
+    """The state-space decoder (S1) and the rest of serving at codelab
+    width. Main path (counted launches): ``cli.infer.main
+    --comparison_test`` on a seeded two-speaker corpus (reductions first
+    and lda x wta, stepped and ssd x WINDOW_LIST; two K1 launches a pair,
+    one S1 launch a ssd window), then the phase-4 stream served with
+    ``--serve_decoder ssd`` synchronous and ``--serve_pipeline``, one TCP
+    session of ``serve_socket`` and ``--selftest``. Checks: the sweep's
+    gates (check_infer, against the same sweep on the CPU in a process
+    of its own), identical decisions of the two serving modes, the TCP
+    session and serve_lines, the SSD's tracking of the planted switch,
+    and S1 against its plain version on the card (s1_against_plain)."""
+    from telluride_decoding_torch.cli import infer, serve
+    from telluride_decoding_torch.decide import attention_decoder
+    ssd = attention_decoder.create_attention_decoder('ssd', device='cpu')
+    start = time.perf_counter()
+    work = os.path.join(BUILD, 'attention')
+    data_dir = os.path.join(work, 'records')
+    model_dir = os.path.join(work, 'cca_model')
+    cpu_out = os.path.join(work, 'infer_cpu.json')
+    t0 = time.perf_counter()
+    labels = infer_corpus(data_dir)
+    corpus_s = time.perf_counter() - t0
+    train_s = train_infer_model(data_dir, model_dir, device)
+    cpu_proc = start_cpu_infer(data_dir, model_dir, cpu_out)
+    try:
+        read_launches = reset_launches()
+        card = run_infer_main(data_dir, model_dir, device)
+        infer_launches = read_launches()
+        for (reduction, decoder), (accuracy, seconds) in card.items():
+            log('phase 11 infer %s + %s on the card: %.2f s; accuracy %s'
+                % (reduction, decoder, seconds, json.dumps(accuracy)))
+        log('phase 11 infer: corpus %d + 1 files (test %d frames, %d '
+            'switches) in %.1f s; CCA model through cli.decoding.main %.2f '
+            's; launches %s' % (INFER_TRAIN_FILES, labels.size,
+                                INFER_SEGMENTS - 1, corpus_s, train_s,
+                                infer_launches))
+        slice_dir = os.path.join(BUILD, 'chip_smoke_model')
+        stream_path = os.path.join(slice_dir, 'stream.npz')
+        with np.load(stream_path) as data:
+            stream = (data['eeg'], data['audio1'], data['audio2'])
+        served = {pipeline: serve_decisions(slice_dir, stream_path, device,
+                                            pipeline)
+                  for pipeline in (False, True)}
+        for pipeline, (decisions, summary, seconds) in served.items():
+            log('phase 11 serve ssd %s: %d windows in %.2f s, latency p50 '
+                '%.3f ms p95 %.3f ms'
+                % ('pipelined' if pipeline else 'synchronous',
+                   len(decisions), seconds, summary['latency_p50_ms'],
+                   summary['latency_p95_ms']))
+        tcp_got, tcp_want = tcp_session(slice_dir, stream, device)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(open(os.devnull, 'w')):
+            if serve.main(['--selftest', '--serve_device', str(device)]):
+                raise AssertionError('--selftest failed')
+        selftest_s = time.perf_counter() - t0
+        launches = read_launches()
+        require_launched(infer_launches, ('fused_cca_decode', 'ssd_update'),
+                         'infer')
+        require_launched(launches, ('fused_cca_decode', 'ssd_update'),
+                         'attention')
+        s1 = s1_against_plain(torch, device, model_dir, data_dir)
+        _, cpu_err = cpu_proc.communicate(timeout=600)
+        if cpu_proc.returncode != 0:
+            raise AssertionError('CPU infer sweep failed: %s'
+                                 % cpu_err[-2000:])
+    finally:
+        if cpu_proc.poll() is None:
+            cpu_proc.kill()
+            cpu_proc.wait()
+    with open(cpu_out) as f:
+        cpu = json.load(f)
+    worst = check_infer(card, cpu, labels.size)
+    sync, piped = served[False], served[True]
+    if not same_decisions(piped[0], sync[0]):
+        raise AssertionError('pipelined ssd decisions differ from the '
+                             'synchronous ones')
+    if not same_decisions(tcp_got, tcp_want):
+        raise AssertionError('the TCP session differs from serve_lines')
+    error = ssd_tracking_error(sync[0], (STREAM_FRAMES // 2) / 100.0,
+                               ssd.k_w, ssd.k_b)
+    if not error < SSD_ERROR_BAR:
+        raise AssertionError('ssd decisions miss the planted switch in %.3f '
+                             'of windows' % error)
+    log('phase 11 infer: card vs CPU (wta, stepped at %s, ssd at %s) '
+        'within %.3g' % (infer.WINDOW_LIST, INFER_CPU_SSD_SIZES, worst))
+    log('phase 11 serve ssd: pipelined decisions identical to synchronous; '
+        'error against the planted switch at a lag of %d windows %.3f '
+        '(bar %g); TCP session of %d decisions identical to serve_lines; '
+        'selftest %.2f s; launches %s'
+        % (ssd.k_b, error, SSD_ERROR_BAR, len(tcp_got), selftest_s,
+           launches))
+    log('phase 11: %.1f s in all; %s' % (time.perf_counter() - start, smi))
+    return launches, s1
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1919,8 +2356,10 @@ def main():
     decoding, k1_frame_scores = phase_decoding(torch, device, smi)
     sweep = phase_sweep(torch, device, smi)
     cohort = phase_cohort(torch, device, smi)
+    attention, s1 = phase_attention(torch, device, smi)
     launches = {name: codelab[name] + kuleuven[name] + decoding[name] +
-                sweep[name] + cohort[name] for name in kuleuven}
+                sweep[name] + cohort[name] + attention[name]
+                for name in kuleuven}
     common = dict(route='cuda', library_ms=None)
     kernels = [
         dict(name='fused_cca_decode',
@@ -1936,6 +2375,13 @@ def main():
              source='telluride_decoding_torch/csrc/fused_frontend.cu',
              replaces='telluride_decoding_tpu/ops/fused_frontend.py:157',
              launches=launches['fused_envelope_lagstack'], **k3, **common),
+        dict(name='ssd_update',
+             source='telluride_decoding_torch/csrc/ssd_update.cu',
+             replaces='telluride_decoding_tpu/decide/attention_decoder.py:88',
+             launches=launches['ssd_update'],
+             note='port of a jitted XLA program (_ssd_update), not of a '
+                  'Pallas kernel; bounded by a chain of dependent Newton '
+                  'steps, not by bytes or operations', **s1, **common),
     ]
     log(smi)
     log(json.dumps({'kernels': kernels}))

@@ -1,22 +1,27 @@
 """Real-time streaming attention server (port of cli/serve.py).
 
-Frames arrive in chunks (replayed from an .npz, or JSON lines on stdin);
-lag context is carried across chunk boundaries; each chunk is one
-``Decoder.infer_pair`` call, which for a CCA model with the LDA reduction
-is one launch of kernel K1 scoring both speakers against one read of the
-EEG chunk; window decisions stream out as JSON lines with per-window
-latency. Chunk-synchronous: a chunk's decisions are out before the next
-chunk is read.
+Frames arrive in chunks; lag context is carried across chunk boundaries;
+each chunk is one ``Decoder.infer_pair`` call, which for a CCA model with
+the LDA reduction is one launch of kernel K1 scoring both speakers
+against one read of the EEG chunk; window decisions stream out as JSON
+lines with per-window latency. The state-space decision rule (``ssd``)
+adds one launch of kernel S1 a window on the card.
 
   python -m telluride_decoding_torch.cli.serve \\
       --serve_model_dir /model --serve_input stream.npz \\
       --chunk_size 32 --serve_window_width 100 --serve_window_step 50
 
-stream.npz holds eeg [N, C], audio1 [N, 1] and audio2 [N, 1].
-``--serve_input -`` reads one JSON chunk per stdin line
-({"eeg": [[...]], "audio1": ..., "audio2": ...}). The flags keep the
-names of the JAX package's tdt-serve; ``--serve_device`` (default cuda)
-is new. TCP mode, --selftest and AOT artifacts are not ported yet.
+``--serve_input`` is an .npz holding eeg [N, C], audio1 [N, 1] and
+audio2 [N, 1] to replay (``--serve_pipeline`` dispatches chunk k+1 before
+reading chunk k's scores back); ``-`` reads one JSON chunk per stdin line
+({"eeg": [[...]], "audio1": ..., "audio2": ...}); ``tcp://HOST:PORT``
+(``tcp://[::1]:PORT`` for IPv6) listens for connections that speak the
+same line protocol, decisions returning on the socket, the model loaded
+once and sessions served one after another, each with fresh streaming
+state. ``--selftest`` serves a toy linear model and checks the decisions
+track a planted attention switch. The flags keep the names of the JAX
+package's tdt-serve; ``--serve_device`` (default cuda) is new. AOT
+artifact directories (``aot_manifest.json``) are not read yet.
 """
 
 from __future__ import annotations
@@ -30,28 +35,31 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from telluride_decoding_torch.cli.decoding import add_flags
+from telluride_decoding_torch.cli.infer import load_model
 from telluride_decoding_torch.decide import attention_decoder
 from telluride_decoding_torch.decode import infer_decoder
 from telluride_decoding_torch.decode.result_store import TwoResultStore
 from telluride_decoding_torch.ops.lagstack import lag_stack_np
 
 REDUCTIONS = ('first', 'second', 'mean', 'mean-squared', 'lda')
-DECISIONS = ('wta', 'stepped')
+DECISIONS = ('wta', 'stepped', 'ssd')
+FIELDS = ('eeg', 'audio1', 'audio2')
+AOT_MANIFEST = 'aot_manifest.json'
 
 
-def load_model(model_dir: str, reduction: str,
-               device) -> infer_decoder.Decoder:
-    """Loads the saved model + decoder params from a model directory
-    (the counterpart of telluride_decoding_tpu/cli/infer.py:166-177)."""
-    decoder = infer_decoder.create_decoder(model_dir, reduction=reduction,
-                                           device=device)
-    decoder.load_decoding_model(model_dir)
-    param_filename = os.path.join(model_dir, 'decoder_model.json')
-    if not os.path.exists(param_filename):
-        raise IOError('Can not load decoder model parameters from %s' %
-                      param_filename)
-    decoder.restore_parameters(param_filename)
-    return decoder
+def _load_serving_decoder(model_dir: str, reduction: Optional[str],
+                          device) -> infer_decoder.Decoder:
+    """A model directory's decoder; ``reduction=None`` (no explicit
+    request) means 'lda'. AOT artifacts of the JAX package are refused."""
+    if os.path.isfile(os.path.join(model_dir, AOT_MANIFEST)):
+        raise ValueError(
+            '%s is an AOT artifact (%s, StableHLO from the JAX package); '
+            'the port does not read AOT artifacts yet (ROADMAP item 9). '
+            'Serve the model directory it was exported from.'
+            % (model_dir, AOT_MANIFEST))
+    return load_model(model_dir, 'lda' if reduction is None else reduction,
+                      device)
 
 
 class ContextBuffer:
@@ -96,13 +104,20 @@ class ContextBuffer:
 
 
 class StreamingAttentionServer:
-    """Chunked two-speaker decode + windowed attention decisions."""
+    """Chunked two-speaker decode + windowed attention decisions.
+
+    With ``pipeline`` a push dispatches its chunk (``infer_pair_async``)
+    and harvests the previous push's scores, so the card's work and the
+    copies back overlap the next chunk's host work; decisions come one
+    push later (``flush()`` at stream end) with the same values."""
 
     def __init__(self, decoder: infer_decoder.Decoder, eeg_channels: int,
                  audio_channels: int = 1, window_width: int = 100,
                  window_step: int = 50, decision: str = 'wta',
-                 frame_rate: float = 100.0):
+                 frame_rate: float = 100.0, pipeline: bool = False):
         self._decoder = decoder
+        self._pipeline = pipeline
+        self._inflight = None
         self.audio_channels = audio_channels
         self.eeg_channels = eeg_channels
         params = decoder.decoding_model_params
@@ -127,7 +142,9 @@ class StreamingAttentionServer:
         self._q2 = np.zeros((0, audio_channels), np.float32)
         self._store = TwoResultStore(window_width=window_width,
                                      window_step=window_step)
-        self._decide = attention_decoder.create_attention_decoder(decision)
+        self._decide = attention_decoder.create_attention_decoder(
+            decision, window_step=window_step, frame_rate=frame_rate,
+            device=decoder.device)
         self._window_width = window_width
         self._window_step = window_step
         self._frame_rate = frame_rate
@@ -159,6 +176,7 @@ class StreamingAttentionServer:
         n = min(self._pend_eeg.shape[0], self._pend_a1.shape[0],
                 self._pend_a2.shape[0], self._q1.shape[0],
                 self._q2.shape[0])
+        prev, self._inflight = self._inflight, None
         if n:
             stacked, self._pend_eeg = (self._pend_eeg[:n],
                                        self._pend_eeg[n:])
@@ -166,10 +184,26 @@ class StreamingAttentionServer:
             a2_ctx, self._pend_a2 = self._pend_a2[:n], self._pend_a2[n:]
             y1, self._q1 = self._q1[:n], self._q1[n:]
             y2, self._q2 = self._q2[:n], self._q2[n:]
-            s1, s2 = self._decoder.infer_pair(stacked, a1_ctx, a2_ctx, y1,
-                                              y2)
+            if self._pipeline:
+                self._inflight = (self._decoder.infer_pair_async(
+                    stacked, a1_ctx, a2_ctx, y1, y2), t0)
+            else:
+                prev = (self._decoder.infer_pair(stacked, a1_ctx, a2_ctx,
+                                                 y1, y2), t0)
+        return self._harvest(prev, t0)
+
+    def flush(self) -> List[Dict]:
+        """Harvests the chunk still in flight at stream end (the
+        pipelined mode reads each chunk back one push later)."""
+        prev, self._inflight = self._inflight, None
+        return self._harvest(prev, time.perf_counter())
+
+    def _harvest(self, prev, t0: float) -> List[Dict]:
+        if prev is not None:
+            (s1, s2), t0 = prev
             self._store.add_data(np.asarray(s1).reshape(-1, 1),
                                  np.asarray(s2).reshape(-1, 1))
+        # Latency counts from the push that dispatched the windows' chunk.
         return self._drain(t0)
 
     def _drain(self, t0: float) -> List[Dict]:
@@ -185,7 +219,8 @@ class StreamingAttentionServer:
                 'time_s': round(center / self._frame_rate, 4),
                 'score1': round(c1, 6),
                 'score2': round(c2, 6),
-                'attend_speaker1': bool(att[0]),
+                # A probability for ssd, a boolean for wta and stepped.
+                'attend_speaker1': bool(att[0] >= 0.5),
                 'latency_ms': round((time.perf_counter() - t0) * 1e3, 3),
             })
             self._windows_emitted += 1
@@ -199,12 +234,13 @@ def _write(out_stream, record: Dict):
 
 def serve_stream(model_dir: str, eeg: np.ndarray, audio1: np.ndarray,
                  audio2: np.ndarray, *, device, chunk_size: int = 32,
-                 reduction: str = 'lda', decision: str = 'wta',
+                 reduction: Optional[str] = None, decision: str = 'wta',
                  window_width: int = 100, window_step: int = 50,
-                 frame_rate: float = 100.0, out_stream=None) -> List[Dict]:
+                 frame_rate: float = 100.0, out_stream=None,
+                 pipeline: bool = False) -> List[Dict]:
     """Replays a recorded stream through the server; returns decisions
     and, with an out_stream, writes them plus a latency summary line."""
-    decoder = load_model(model_dir, reduction, device)
+    decoder = _load_serving_decoder(model_dir, reduction, device)
 
     def orient(a):
         a = np.atleast_2d(np.asarray(a, np.float32))
@@ -214,13 +250,17 @@ def serve_stream(model_dir: str, eeg: np.ndarray, audio1: np.ndarray,
     server = StreamingAttentionServer(
         decoder, eeg_channels=eeg.shape[1], audio_channels=audio1.shape[1],
         window_width=window_width, window_step=window_step,
-        decision=decision, frame_rate=frame_rate)
+        decision=decision, frame_rate=frame_rate, pipeline=pipeline)
     all_decisions = []
-    for start in range(0, eeg.shape[0], chunk_size):
-        sl = slice(start, start + chunk_size)
-        for record in server.push(eeg[sl], audio1[sl], audio2[sl]):
+
+    def emit(records):
+        for record in records:
             all_decisions.append(record)
             _write(out_stream, record)
+    for start in range(0, eeg.shape[0], chunk_size):
+        sl = slice(start, start + chunk_size)
+        emit(server.push(eeg[sl], audio1[sl], audio2[sl]))
+    emit(server.flush())
     if all_decisions:
         lat = np.asarray([d['latency_ms'] for d in all_decisions])
         _write(out_stream, {
@@ -249,14 +289,28 @@ def _orient_chunk(a, frames: int, known_channels: Optional[int]
     return a
 
 
+def _is_keepalive(chunk) -> bool:
+    """A chunk whose three fields are all present and empty lists. A
+    chunk missing a field (a misspelled key, say) is not one: it is a bad
+    line and is reported."""
+    return isinstance(chunk, dict) and all(
+        isinstance(chunk.get(key), list) and
+        np.asarray(chunk[key]).size == 0 for key in FIELDS)
+
+
 def serve_lines(model_dir: str, in_stream, *, device,
-                reduction: str = 'lda', decision: str = 'wta',
+                reduction: Optional[str] = None, decision: str = 'wta',
                 window_width: int = 100, window_step: int = 50,
-                frame_rate: float = 100.0, out_stream=None) -> List[Dict]:
+                frame_rate: float = 100.0, out_stream=None,
+                decoder=None) -> List[Dict]:
     """Line protocol: one JSON chunk per input line, decisions out as
     JSON lines flushed per chunk. A bad line or chunk is reported on
-    stderr and skipped; EOF ends the stream."""
-    decoder = load_model(model_dir, reduction, device)
+    stderr and skipped; EOF ends the stream. ``decoder`` skips the model
+    load (the TCP listener loads once); the streaming state is this
+    call's own. Live serving stays chunk-synchronous: pipelining would
+    hold each chunk's decisions until the next chunk arrives."""
+    if decoder is None:
+        decoder = _load_serving_decoder(model_dir, reduction, device)
     server = None
     decisions: List[Dict] = []
     for line in in_stream:
@@ -265,17 +319,17 @@ def serve_lines(model_dir: str, in_stream, *, device,
             continue
         try:
             chunk = json.loads(line)
-            if not (chunk.get('eeg') or chunk.get('audio1') or
-                    chunk.get('audio2')):
-                continue        # Empty keepalive chunk.
+            if _is_keepalive(chunk):
+                continue
             eeg = _orient_chunk(
                 chunk['eeg'], -1,
                 None if server is None else server.eeg_channels)
             known = None if server is None else server.audio_channels
             a1 = _orient_chunk(chunk['audio1'], eeg.shape[0], known)
             a2 = _orient_chunk(chunk['audio2'], eeg.shape[0], known)
-        except (ValueError, KeyError, TypeError, AttributeError) as error:
-            print('serve: skipping bad input line (%s): %.80s' %
+        except (ValueError, KeyError, TypeError, AttributeError,
+                IndexError) as error:
+            print('serve: skipping bad input line (%r): %.80s' %
                   (error, line), file=sys.stderr)
             continue
         if server is None:
@@ -300,60 +354,217 @@ def serve_lines(model_dir: str, in_stream, *, device,
     return decisions
 
 
+def _parse_tcp(address: str) -> tuple:
+    """'tcp://HOST:PORT' -> (host, port); a bracketed IPv6 literal loses
+    its brackets. An empty host binds all interfaces; port 0 asks the OS
+    for a free one."""
+    host, sep, port = address[len('tcp://'):].rpartition(':')
+    if not sep or not port.isdigit():
+        raise ValueError('serve: bad TCP address %r (want tcp://HOST:PORT, '
+                         'e.g. tcp://0.0.0.0:7355)' % address)
+    if host.startswith('[') and host.endswith(']'):
+        host = host[1:-1]
+    return host, int(port)
+
+
+def serve_socket(model_dir: str, address: str, *, device,
+                 reduction: Optional[str] = None, decision: str = 'wta',
+                 window_width: int = 100, window_step: int = 50,
+                 frame_rate: float = 100.0,
+                 max_sessions: Optional[int] = None,
+                 idle_timeout_s: float = 0.0,
+                 on_bound=None) -> List[int]:
+    """TCP listener speaking the line protocol over each connection.
+
+    The model loads once; connections are accepted one after another,
+    each served by serve_lines with fresh streaming state, decisions
+    returning on the same socket. A client half-close ends its session;
+    a reset, a timeout (``idle_timeout_s`` > 0 with no data, or a dead
+    peer found by TCP keepalive) or bytes that are not UTF-8 abort only
+    that session. ``max_sessions`` bounds the sessions served (None:
+    forever); ``on_bound(host, port)`` reports the bound address.
+    Returns the decisions per session (-1 for an aborted one)."""
+    import socket
+    host, port = _parse_tcp(address)
+    decoder = _load_serving_decoder(model_dir, reduction, device)
+    family = socket.AF_INET6 if ':' in host else socket.AF_INET
+    srv = socket.create_server((host, port), family=family)
+    try:
+        bound_host, bound_port = srv.getsockname()[:2]
+        print('serve: listening on %s:%d' % (bound_host, bound_port),
+              file=sys.stderr)
+        if on_bound is not None:
+            on_bound(bound_host, bound_port)
+        counts: List[int] = []
+        while max_sessions is None or len(counts) < max_sessions:
+            conn, peer = srv.accept()
+            print('serve: session %d from %s:%d' %
+                  (len(counts), peer[0], peer[1]), file=sys.stderr)
+            try:
+                with conn:
+                    conn.setsockopt(socket.SOL_SOCKET, socket.SO_KEEPALIVE,
+                                    1)
+                    if idle_timeout_s > 0:
+                        conn.settimeout(idle_timeout_s)
+                    reader = conn.makefile('r', encoding='utf-8',
+                                           newline='\n')
+                    writer = conn.makefile('w', encoding='utf-8',
+                                           newline='\n')
+                    try:
+                        decisions = serve_lines(
+                            model_dir, reader, device=device,
+                            decision=decision, window_width=window_width,
+                            window_step=window_step, frame_rate=frame_rate,
+                            out_stream=writer, decoder=decoder)
+                    finally:
+                        # Both file objects hold the socket open: close
+                        # them so conn's close sends FIN.
+                        for f in (writer, reader):
+                            try:
+                                f.close()
+                            except OSError:
+                                pass
+                    counts.append(len(decisions))
+            except (OSError, UnicodeDecodeError) as error:
+                print('serve: session %d aborted (%s)' %
+                      (len(counts), error), file=sys.stderr)
+                counts.append(-1)
+        return counts
+    finally:
+        srv.close()
+
+
+def _selftest(out_stream, device) -> float:
+    """Toy linear model end to end: decisions must track the planted
+    attention switch in more than 0.9 of the windows (JAX
+    telluride_decoding_tpu/cli/serve.py:641-685)."""
+    import tempfile
+    from telluride_decoding_torch.data.brain_data import TestBrainData
+    from telluride_decoding_torch.models.brain_model import (
+        BrainModelLinearRegression)
+
+    rng = np.random.RandomState(42)
+    n = 6000
+    a1 = np.abs(rng.randn(n, 1)).astype(np.float32)
+    a2 = np.abs(rng.randn(n, 1)).astype(np.float32)
+    attend = (np.arange(n) >= n // 2)           # Switch at midpoint.
+    attended = np.where(attend[:, None], a2, a1)
+    eeg = (attended * 2.0 - 1.0 +
+           0.05 * rng.randn(n, 1)).astype(np.float32)
+
+    model = BrainModelLinearRegression(input_width=1, output_width=1,
+                                       regularization_lambda=1e-4,
+                                       device=device)
+    bd = TestBrainData('input_1', 'output', 100.0, device=device)
+    bd.preserve_test_data(eeg[:n // 2], a1[:n // 2])
+    model.fit(bd.create_dataset('train'))
+    model.add_metadata({'pre_context': 0, 'post_context': 0,
+                        'input2_pre_context': 0, 'input2_post_context': 0,
+                        'dnn_regressor': 'linear'}, dataset=None)
+    with tempfile.TemporaryDirectory() as tmp:
+        model.save(tmp)
+        dec = infer_decoder.create_decoder(tmp, reduction='first',
+                                           device=device)
+        dec.load_decoding_model(tmp)
+        dec.add_data_correlator(a1[:n // 2], a1[:n // 2])
+        dec.save_parameters(os.path.join(tmp, 'decoder_model.json'))
+        decisions = serve_stream(tmp, eeg, a1, a2, device=device,
+                                 chunk_size=64, reduction='first',
+                                 decision='wta', window_width=100,
+                                 window_step=100, out_stream=out_stream)
+    correct = sum(d['attend_speaker1'] != (d['time_s'] >= (n // 2) / 100.0)
+                  for d in decisions)
+    frac = correct / max(len(decisions), 1)
+    print('selftest: %d windows, %.1f%% correct' %
+          (len(decisions), 100 * frac), file=sys.stderr)
+    if frac <= 0.9:
+        raise SystemExit('selftest FAILED: %.3f <= 0.9' % frac)
+    return frac
+
+
+_FLAGS = [
+    ('serve_model_dir', str, None, None,
+     'Trained model dir (model.json + weights.npz + decoder_model.json).'),
+    ('serve_input', str, None, None,
+     '.npz with eeg/audio1/audio2 arrays to replay, "-" to read JSON '
+     'chunk lines from stdin, or "tcp://HOST:PORT" to listen for '
+     'connections speaking the same line protocol (decisions return on '
+     'the socket; --serve_output is ignored).'),
+    ('serve_output', str, None, None,
+     'Where to write JSON-line decisions (default stdout).'),
+    ('chunk_size', int, 32, None,
+     'Frames per push (simulated acquisition chunk).'),
+    ('serve_window_width', int, 100, None, 'Frames per correlation window.'),
+    ('serve_window_step', int, 50, None, 'Frames between window starts.'),
+    # None: not given, which means lda (only an explicit value counts as
+    # a request).
+    ('serve_reduction', str, None, REDUCTIONS,
+     'Correlation-to-scalar reduction (default lda).'),
+    ('serve_decoder', str, 'wta', DECISIONS, 'Attention decision rule.'),
+    ('serve_frame_rate', float, 100.0, None, 'Frames per second.'),
+    ('serve_pipeline', bool, False, None,
+     'Replay only: dispatch chunk k+1 before reading chunk k\'s scores '
+     'back (infer_pair_async).'),
+    ('selftest', bool, False, None,
+     'Build a toy model + stream and check the served decisions track the '
+     'planted attention switch.'),
+    ('serve_idle_timeout_s', float, 0.0, None,
+     'TCP mode: abort a session when no data arrives for this many '
+     'seconds (0 = wait forever). TCP keepalive is on for every session.'),
+    ('serve_device', str, 'cuda', None,
+     'torch device to decode on (cuda, or cpu for the plain versions of '
+     'the kernels).'),
+]
+
+
 def parse_args(argv: Optional[List[str]]) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         prog='python -m telluride_decoding_torch.cli.serve',
-        description='Streaming attention server on the GPU.')
-    parser.add_argument('--serve_model_dir', required=True,
-                        help='Trained model dir (model.json + weights.npz '
-                        '+ decoder_model.json).')
-    parser.add_argument('--serve_input', required=True,
-                        help='.npz with eeg/audio1/audio2 arrays to replay, '
-                        'or "-" to read JSON chunk lines from stdin.')
-    parser.add_argument('--serve_output', default=None,
-                        help='Where to write JSON-line decisions (default '
-                        'stdout).')
-    parser.add_argument('--chunk_size', type=int, default=32,
-                        help='Frames per push (simulated acquisition '
-                        'chunk).')
-    parser.add_argument('--serve_window_width', type=int, default=100,
-                        help='Frames per correlation window.')
-    parser.add_argument('--serve_window_step', type=int, default=50,
-                        help='Frames between window starts.')
-    parser.add_argument('--serve_reduction', default='lda',
-                        choices=REDUCTIONS,
-                        help='Correlation-to-scalar reduction.')
-    parser.add_argument('--serve_decoder', default='wta', choices=DECISIONS,
-                        help='Attention decision rule.')
-    parser.add_argument('--serve_frame_rate', type=float, default=100.0,
-                        help='Frames per second.')
-    parser.add_argument('--serve_device', default='cuda',
-                        help='torch device to decode on (cuda, or cpu for '
-                        'the plain versions of the kernels).')
+        description='Streaming attention server on the GPU.',
+        allow_abbrev=False)
+    add_flags(parser, _FLAGS)
     args = parser.parse_args(argv)
-    if args.serve_input.startswith('tcp://'):
-        parser.error('TCP serving is not ported to telluride_decoding_torch '
-                     'yet.')
+    if not args.selftest and not (args.serve_model_dir and args.serve_input):
+        parser.error('Need --serve_model_dir and --serve_input (or '
+                     '--selftest).')
+    if (not args.selftest and args.serve_input.startswith('tcp://')):
+        try:
+            _parse_tcp(args.serve_input)
+        except ValueError as error:
+            parser.error(str(error))
     return args
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
+    tcp_mode = (not args.selftest and args.serve_input.startswith('tcp://'))
+    common = dict(device=args.serve_device, reduction=args.serve_reduction,
+                  decision=args.serve_decoder,
+                  window_width=args.serve_window_width,
+                  window_step=args.serve_window_step,
+                  frame_rate=args.serve_frame_rate)
+    if tcp_mode:
+        # Decisions return on each session's socket; --serve_output is
+        # never opened, so an existing file there stays as it was.
+        if args.serve_output:
+            print('serve: --serve_output is ignored in TCP mode (decisions '
+                  'return on each session socket)', file=sys.stderr)
+        serve_socket(args.serve_model_dir, args.serve_input,
+                     idle_timeout_s=args.serve_idle_timeout_s, **common)
+        return 0
     out = open(args.serve_output, 'w') if args.serve_output else sys.stdout
     try:
-        common = dict(device=args.serve_device,
-                      reduction=args.serve_reduction,
-                      decision=args.serve_decoder,
-                      window_width=args.serve_window_width,
-                      window_step=args.serve_window_step,
-                      frame_rate=args.serve_frame_rate, out_stream=out)
-        if args.serve_input == '-':
-            serve_lines(args.serve_model_dir, sys.stdin, **common)
+        if args.selftest:
+            _selftest(out, args.serve_device)
+        elif args.serve_input == '-':
+            serve_lines(args.serve_model_dir, sys.stdin, out_stream=out,
+                        **common)
         else:
             with np.load(args.serve_input) as data:
                 serve_stream(args.serve_model_dir, data['eeg'],
                              data['audio1'], data['audio2'],
-                             chunk_size=args.chunk_size, **common)
+                             chunk_size=args.chunk_size, out_stream=out,
+                             pipeline=args.serve_pipeline, **common)
     finally:
         if out is not sys.stdout:
             out.close()

@@ -85,6 +85,41 @@ class _Pipeline(collections.namedtuple('_Pipeline',
     else None and ``correlate_reduce(r1, r2)`` in plain torch."""
 
 
+class PendingScores:
+    """One score vector on its way to the host; ``np.asarray`` waits for
+    the copy's event."""
+
+    def __init__(self, host: torch.Tensor, done):
+        self._host = host
+        self._done = done
+
+    def __array__(self, dtype=None, copy=None):
+        del copy
+        self._done.synchronize()
+        return np.asarray(self._host.numpy(), dtype=dtype)
+
+
+class PendingPair:
+    """Two score vectors copied to pinned host memory without blocking;
+    unpacks into two PendingScores, ``harvest()`` waits for both."""
+
+    def __init__(self, scores):
+        done = torch.cuda.Event()
+        hosts = []
+        for s in scores:
+            host = torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
+            host.copy_(s, non_blocking=True)
+            hosts.append(host)
+        done.record()
+        self._pending = tuple(PendingScores(h, done) for h in hosts)
+
+    def __iter__(self):
+        return iter(self._pending)
+
+    def harvest(self) -> Tuple[np.ndarray, np.ndarray]:
+        return tuple(np.asarray(p) for p in self._pending)
+
+
 class Decoder:
     """Base decoder: correlation statistics + reduction + LDA.
 
@@ -113,6 +148,10 @@ class Decoder:
         self.reset_correlation_statistics()
 
     # -- properties -----------------------------------------------------------
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
 
     @property
     def decoding_model(self):
@@ -333,6 +372,25 @@ class Decoder:
             [self._tensor(input_2a), self._tensor(input_2b)],
             [output_a, output_b])
         return scores_a.cpu().numpy(), scores_b.cpu().numpy()
+
+    def infer_pair_async(self, input_1, input_2a, input_2b, output_a,
+                         output_b):
+        """infer_pair without waiting for the scores (counterpart of
+        telluride_decoding_tpu/decode/infer_decoder.py:669-681).
+
+        On the card it launches what infer_pair launches (one K1 launch
+        with the fused decode), issues both device-to-host copies into
+        pinned host tensors without blocking, records a CUDA event and
+        returns a PendingPair: unpacking it gives two score handles that
+        ``np.asarray`` turns into arrays after waiting on the event, and
+        ``harvest()`` gives both. On the CPU it returns the two arrays."""
+        scores = self._scores(
+            self._tensor(input_1),
+            [self._tensor(input_2a), self._tensor(input_2b)],
+            [output_a, output_b])
+        if self._device.type != 'cuda':
+            return tuple(s.numpy() for s in scores)
+        return PendingPair(scores)
 
     # -- training ------------------------------------------------------------------
 

@@ -12,6 +12,10 @@ bf16 rtol 1e-3 / atol 1e-3, since both sides read the same bf16 data and
 rotations and accumulate in float32 (the tensor cores' products of two
 bf16 values are exact in float32; only the order of the sums differs). The audio envelope: atol 1e-4, the
 JAX suite's bound for its kernel (float32 window sums in another order).
+The SSD update (S1): atol 1e-4 on z, eta and the new state, against the
+plain version on the card from the same state (every operation rounded
+alike; only the four window sums run in another order, and twenty EM
+rounds of Newton steps amplify that).
 """
 
 import numpy as np
@@ -19,7 +23,7 @@ import pytest
 import torch
 
 from telluride_decoding_torch.ops import (decode_kernel, fused_frontend,
-                                          lagstack)
+                                          lagstack, ssd_update)
 
 
 @pytest.fixture
@@ -406,3 +410,144 @@ def test_cohort_on_card_matches_cpu(cuda, tmp_path):
                                    atol=1e-4)
     np.testing.assert_allclose(mean, want_mean, rtol=0, atol=1e-4)
     np.testing.assert_allclose(std, want_std, rtol=0, atol=1e-4)
+
+
+SSD_TOL = dict(rtol=0, atol=1e-4, equal_nan=True)
+
+
+def _ssd_stream(cuda, k_w, windows, seed=0, zero_at=None):
+    """S1 over ``windows`` updates of a seeded log-normal stream, in
+    place; returns (S1's input state buffers, r1, r2, S1's z and eta, the
+    final buffer), each stacked over the windows."""
+    rng = np.random.RandomState(seed)
+    mean_p, var_p = 0.2, 5
+    a_0 = 2 + mean_p ** 2 / var_p
+    consts = ssd_update.constants_views(torch.tensor(
+        [-0.3994, -1.5103, 641.13, 4043.4, 375.81, 6279.1, a_0,
+         mean_p * (a_0 - 1), 1.0], device=cuda))
+    buf = torch.cat([torch.tensor([-0.3994, -1.5103, 1.7060, 0.64395]),
+                     torch.zeros(2 * (k_w + 1)), torch.full((k_w,), 0.3),
+                     torch.zeros(k_w)]).to(cuda)
+    state = ssd_update.state_views(buf, k_w)
+    att = (np.arange(windows + k_w) // 20) % 2 == 0
+    r_att = np.exp(-0.4 + 0.6 * rng.randn(att.size))
+    r_un = np.exp(-1.5 + 0.9 * rng.randn(att.size))
+    r1_all = np.where(att, r_att, r_un).astype(np.float32)
+    r2_all = np.where(att, r_un, r_att).astype(np.float32)
+    if zero_at is not None:
+        r1_all[zero_at] = 0.0
+    inputs, r1s, r2s, outs = [], [], [], []
+    for i in range(windows):
+        r1 = torch.as_tensor(r1_all[i:i + k_w], device=cuda)
+        r2 = torch.as_tensor(r2_all[i:i + k_w], device=cuda)
+        inputs.append(buf.clone())
+        _, z, eta = ssd_update.ssd_update(state, r1, r2, consts, 20, 1, 10,
+                                          k_w)
+        r1s.append(r1)
+        r2s.append(r2)
+        outs.append(torch.stack([z, eta]))
+    return (torch.stack(inputs), torch.stack(r1s), torch.stack(r2s),
+            torch.stack(outs), buf, consts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k_w,windows', [(1, 12), (14, 40), (32, 20)])
+def test_ssd_update_matches_plain(cuda, k_w, windows):
+    before = ssd_update.ssd_update.launches
+    inputs, r1, r2, got, final, consts = _ssd_stream(cuda, k_w, windows)
+    torch.cuda.synchronize()
+    assert ssd_update.ssd_update.launches == before + windows
+    new_state, z, eta = ssd_update.ssd_update_reference(
+        ssd_update.state_views(inputs, k_w), r1, r2, consts, 20, 1, 10, k_w)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, torch.stack([z, eta], 1), **SSD_TOL)
+    torch.testing.assert_close(final, ssd_update.pack(
+        [f[-1] for f in new_state]), **SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_update_is_bitwise_repeatable(cuda):
+    first = _ssd_stream(cuda, 14, 25)
+    second = _ssd_stream(cuda, 14, 25)
+    assert torch.equal(first[3], second[3])
+    assert torch.equal(first[4], second[4])
+
+
+@pytest.mark.cuda
+def test_ssd_update_log_of_zero_as_plain(cuda):
+    """An r of 0 (log 0) gives what the plain version gives (NaN where
+    it gives NaN)."""
+    k_w = 14
+    inputs, r1, r2, got, _, consts = _ssd_stream(cuda, k_w, 3,
+                                                 zero_at=k_w + 1)
+    _, z, eta = ssd_update.ssd_update_reference(
+        ssd_update.state_views(inputs, k_w), r1, r2, consts, 20, 1, 10, k_w)
+    want = torch.stack([z, eta], 1)
+    assert torch.isnan(want).any()
+    torch.testing.assert_close(got, want, **SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_update_refuses_a_long_window(cuda):
+    k_w = 33
+    state = ssd_update.state_views(torch.zeros(6 + 4 * k_w, device=cuda),
+                                   k_w)
+    consts = ssd_update.constants_views(torch.ones(9, device=cuda))
+    r = torch.ones(k_w, device=cuda)
+    with pytest.raises(ValueError, match='k_w <= 32'):
+        ssd_update.ssd_update(state, r, r, consts, 20, 1, 10, k_w)
+
+
+@pytest.mark.cuda
+def test_ssd_decoder_on_card_matches_cpu(cuda):
+    """The decider end to end: one S1 launch a window after the warm-up,
+    p, lower and upper within the tolerance of the CPU's plain run."""
+    from telluride_decoding_torch.decide import attention_decoder
+    rng = np.random.RandomState(5)
+    att = np.arange(50) < 25
+    r_att = np.exp(-0.4 + 0.6 * rng.randn(50))
+    r_un = np.exp(-1.5 + 0.9 * rng.randn(50))
+    r1, r2 = np.where(att, r_att, r_un), np.where(att, r_un, r_att)
+    card = attention_decoder.create_attention_decoder('ssd', device=cuda)
+    cpu = attention_decoder.create_attention_decoder('ssd', device='cpu')
+    for dec in (card, cpu):
+        dec.tune(r1[:20], r2[:20])
+    before = ssd_update.ssd_update.launches
+    got = np.array([card.attention(a, b) for a, b in zip(r1, r2)])
+    assert ssd_update.ssd_update.launches - before == 50 - card.k_w + 1
+    want = np.array([cpu.attention(a, b) for a, b in zip(r1, r2)])
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_infer_pair_async_on_card_matches_infer_pair(cuda):
+    """infer_pair_async: one K1 launch, the scores copied back without
+    blocking; np.asarray of each handle (and harvest) waits and gives
+    infer_pair's scores bit for bit."""
+    from telluride_decoding_torch.decode.infer_decoder import CCADecoder
+    from telluride_decoding_torch.models import convert
+    rng = np.random.RandomState(6)
+    f1, f2, d, n = 40, 5, 3, 600
+    flat = {'mean1': rng.randn(1, f1), 'mean2': rng.randn(1, f2),
+            'rot1': rng.randn(f1, d) * 0.1, 'rot2': rng.randn(f2, d) * 0.3}
+    x1 = rng.randn(n, f1).astype(np.float32)
+    x2 = (x1[:, :f2] + rng.randn(n, f2)).astype(np.float32)
+    out = np.zeros((n, 1), np.float32)
+    batches = [({'input_1': x1[i:i + 100], 'input_2': x2[i:i + 100]},
+                out[i:i + 100]) for i in range(0, n, 100)]
+    cpu = CCADecoder(convert.cca_params_from_numpy(flat, 'cpu'),
+                     reduction='lda', device='cpu')
+    cpu.train(batches[::-1], batches, window_size=10)
+    card = CCADecoder(convert.cca_params_from_numpy(flat, cuda),
+                      reduction='lda', device=cuda)
+    card.model_params = cpu.model_params
+    args = (x1[:32], x2[:32], x2[32:64], out[:32], out[:32])
+    before = decode_kernel.fused_cca_decode.launches
+    pending = card.infer_pair_async(*args)
+    assert decode_kernel.fused_cca_decode.launches == before + 1
+    want = card.infer_pair(*args)
+    got_a, got_b = (np.asarray(p) for p in pending)
+    np.testing.assert_array_equal(got_a, want[0])
+    np.testing.assert_array_equal(got_b, want[1])
+    for g, w in zip(pending.harvest(), want):
+        np.testing.assert_array_equal(g, w)

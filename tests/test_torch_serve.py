@@ -3,19 +3,26 @@
 Both serve the same JAX-written model directory and the same stream;
 decisions must be identical and the window scores equal within 1e-4
 (the float32 bound of the fused decode, tests/test_decode_kernel.py;
-the scores are written rounded to 6 decimals)."""
+the scores are written rounded to 6 decimals). The TCP tests run the
+port's listener on a thread on loopback, as the JAX suite's
+TestServeSocket does."""
 
 import io
 import json
 import os
+import queue
+import socket
+import struct
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
 
 from telluride_decoding_tpu.cli import serve as jax_serve
 from telluride_decoding_torch.cli import serve
+from telluride_decoding_torch.ops.lagstack import lag_stack_np
 from test_torch_infer_decoder import jax_model_dir, recordings
 
 SCORE_TOL = 1e-4
@@ -55,7 +62,7 @@ def test_context_buffer_matches_jax(rng, pre, post, chunks):
         start += c
 
 
-@pytest.mark.parametrize('decision', ['wta', 'stepped'])
+@pytest.mark.parametrize('decision', ['wta', 'stepped', 'ssd'])
 def test_serve_stream_matches_jax(served, decision):
     path, (eeg, a1, a2) = served
     kwargs = dict(chunk_size=32, reduction='lda', decision=decision,
@@ -98,10 +105,13 @@ def test_main_replays_npz(served, tmp_path):
         path, eeg, a1, a2, chunk_size=32, reduction='lda'))
 
 
-def test_main_refuses_tcp(served):
+@pytest.mark.parametrize('address', ['tcp://nohost', 'tcp://h:notaport',
+                                     'tcp://:-5'])
+def test_main_refuses_tcp(served, address):
+    """main refuses a TCP address it cannot parse before it listens."""
     with pytest.raises(SystemExit):
         serve.main(['--serve_model_dir', served[0], '--serve_input',
-                    'tcp://localhost:0', '--serve_device', 'cpu'])
+                    address, '--serve_device', 'cpu'])
 
 
 def test_import_leaves_jax_out():
@@ -113,6 +123,8 @@ def test_import_leaves_jax_out():
         '"telluride_decoding_tpu"):\n'
         '        del sys.modules[name]\n'
         'import telluride_decoding_torch.cli.serve\n'
+        'import telluride_decoding_torch.cli.infer\n'
+        'import telluride_decoding_torch.decide.attention_decoder\n'
         'import telluride_decoding_torch.cli.regression_data\n'
         'import telluride_decoding_torch.cli.regression\n'
         'import telluride_decoding_torch.cli.cohort\n'
@@ -136,3 +148,289 @@ def test_import_leaves_jax_out():
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout
+
+
+def _lines(stream, step=50, frames=None):
+    eeg, a1, a2 = stream
+    frames = eeg.shape[0] if frames is None else frames
+    return [json.dumps({'eeg': eeg[s:s + step].tolist(),
+                        'audio1': a1[s:s + step].tolist(),
+                        'audio2': a2[s:s + step].tolist()})
+            for s in range(0, frames, step)]
+
+
+def test_pipelined_replay_equals_synchronous(served):
+    """--serve_pipeline harvests each chunk one push later: the same
+    decisions, and latency counts from the push that dispatched the
+    windows' chunk, so it is never zero by construction."""
+    path, (eeg, a1, a2) = served
+    kwargs = dict(device='cpu', chunk_size=150, window_width=100,
+                  window_step=100)
+    piped = serve.serve_stream(path, eeg, a1, a2, pipeline=True, **kwargs)
+    sync = serve.serve_stream(path, eeg, a1, a2, **kwargs)
+    assert [d['score1'] for d in piped] == [d['score1'] for d in sync]
+    assert [d['attend_speaker1'] for d in piped] == \
+        [d['attend_speaker1'] for d in sync]
+    assert all(d['latency_ms'] > 0 for d in piped)
+
+
+def test_flush_harvests_the_last_chunk(served):
+    path, (eeg, a1, a2) = served
+    decoder = serve.load_model(path, 'lda', 'cpu')
+    server = serve.StreamingAttentionServer(
+        decoder, eeg_channels=eeg.shape[1], window_width=100,
+        window_step=100, pipeline=True)
+    pushed = server.push(eeg[:300], a1[:300], a2[:300])
+    assert pushed == []            # The chunk is still in flight.
+    flushed = server.flush()
+    assert len(flushed) == 2 and server.flush() == []
+    sync = serve.StreamingAttentionServer(
+        decoder, eeg_channels=eeg.shape[1], window_width=100,
+        window_step=100)
+    want = sync.push(eeg[:300], a1[:300], a2[:300])
+    assert [d['score1'] for d in flushed] == [d['score1'] for d in want]
+
+
+def test_infer_pair_async_on_cpu_returns_the_arrays(served):
+    path, (eeg, a1, a2) = served
+    decoder = serve.load_model(path, 'lda', 'cpu')
+    x1 = lag_stack_np(eeg[:200], 0, 4)
+    x2a, x2b = lag_stack_np(a1[:200], 2, 2), lag_stack_np(a2[:200], 2, 2)
+    got = decoder.infer_pair_async(x1, x2a, x2b, a1[:200], a2[:200])
+    want = decoder.infer_pair(x1, x2a, x2b, a1[:200], a2[:200])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), w)
+
+
+def _upper_case_chunk(stream):
+    """A chunk from a client that spells the field names in capitals."""
+    return json.dumps({'EEG': stream[0][:50].tolist(),
+                       'AUDIO1': stream[1][:50].tolist(),
+                       'AUDIO2': stream[2][:50].tolist()})
+
+
+def test_misspelled_key_is_reported(served, capsys):
+    """A chunk with a misspelled field is a bad line, reported on stderr;
+    only three present and empty fields make a keepalive."""
+    path, stream = served
+    lines = _lines(stream, frames=200)
+    bad = _upper_case_chunk(stream)
+    keepalive = json.dumps({'eeg': [], 'audio1': [], 'audio2': []})
+    got = serve.serve_lines(path, io.StringIO('\n'.join(
+        [keepalive, lines[0], bad, keepalive] + lines[1:]) + '\n'),
+        device='cpu')
+    err = capsys.readouterr().err
+    assert err.count('skipping bad input line') == 1 and "'eeg'" in err
+    want = serve.serve_lines(path, io.StringIO('\n'.join(lines) + '\n'),
+                             device='cpu')
+    assert [d['score1'] for d in got] == [d['score1'] for d in want]
+
+
+def test_jax_drops_a_misspelled_key_silently(served, capsys):
+    """The reference fault the port does not copy: JAX serve_lines takes
+    {"EEG": ..., "AUDIO1": ..., "AUDIO2": ...} for a keepalive and skips it without a word
+    (telluride_decoding_tpu/cli/serve.py:463-471)."""
+    path, stream = served
+    bad = _upper_case_chunk(stream)
+    bad_audio = json.dumps({'eeg': stream[0][:50].tolist(),
+                            'Audio1': stream[1][:50].tolist(),
+                            'audio2': stream[2][:50].tolist()})
+    assert jax_serve.serve_lines(path, io.StringIO(bad + '\n')) == []
+    assert capsys.readouterr().err == ''
+    # A chunk whose eeg is there does reach the error path in JAX.
+    jax_serve.serve_lines(path, io.StringIO(bad_audio + '\n'))
+    assert 'skipping bad input line' in capsys.readouterr().err
+
+
+class _Probability:
+    """A decision rule that answers with a probability, as ssd does."""
+
+    def __init__(self, p):
+        self.p = p
+
+    def attention(self, r1, r2):
+        del r1, r2
+        return self.p, self.p - 0.1, self.p + 0.1
+
+
+@pytest.mark.parametrize('p,want', [(0.3, False), (0.5, True), (0.7, True)])
+def test_attend_speaker1_thresholds_a_probability(served, p, want):
+    path, (eeg, a1, a2) = served
+    server = serve.StreamingAttentionServer(
+        serve.load_model(path, 'lda', 'cpu'), eeg_channels=eeg.shape[1],
+        window_width=100, window_step=100)
+    server._decide = _Probability(p)
+    decisions = server.push(eeg[:300], a1[:300], a2[:300])
+    assert decisions and all(d['attend_speaker1'] is want
+                             for d in decisions)
+
+
+def test_aot_artifact_is_refused(served, tmp_path):
+    with open(tmp_path / serve.AOT_MANIFEST, 'w') as f:
+        f.write('{}')
+    with pytest.raises(ValueError, match='ROADMAP item 9'):
+        serve._load_serving_decoder(str(tmp_path), None, 'cpu')
+
+
+def test_only_an_explicit_reduction_is_a_request(served, monkeypatch):
+    called = []
+    monkeypatch.setattr(serve, 'serve_socket',
+                        lambda *a, **k: called.append(k))
+    argv = ['--serve_model_dir', served[0], '--serve_input',
+            'tcp://127.0.0.1:0', '--serve_device', 'cpu']
+    serve.main(argv)
+    serve.main(argv + ['--serve_reduction', 'first'])
+    assert [k['reduction'] for k in called] == [None, 'first']
+    assert serve._load_serving_decoder(served[0], None, 'cpu') \
+        ._reduction == 'lda'
+
+
+def test_tcp_mode_leaves_serve_output_untouched(served, tmp_path,
+                                                monkeypatch):
+    out = tmp_path / 'decisions.jsonl'
+    out.write_text('{"precious": 1}\n')
+    called = []
+    monkeypatch.setattr(serve, 'serve_socket',
+                        lambda *a, **k: called.append(k))
+    assert serve.main(['--serve_model_dir', served[0], '--serve_input',
+                       'tcp://127.0.0.1:0', '--serve_output', str(out),
+                       '--serve_device', 'cpu',
+                       '--serve_idle_timeout_s', '2.5']) == 0
+    assert called and called[0]['idle_timeout_s'] == 2.5
+    assert out.read_text() == '{"precious": 1}\n'
+
+
+def test_selftest_main(capsys):
+    assert serve.main(['--selftest', '--serve_device', 'cpu']) == 0
+    assert 'selftest: 60 windows' in capsys.readouterr().err
+
+
+class TestServeSocket:
+    """The TCP listener against serve_lines, on loopback."""
+
+    @staticmethod
+    def _start(model_dir, max_sessions, address='tcp://127.0.0.1:0',
+               **kw):
+        bound = queue.Queue()
+        box = {}
+
+        def run():
+            try:
+                box['counts'] = serve.serve_socket(
+                    model_dir, address, device='cpu',
+                    max_sessions=max_sessions,
+                    on_bound=lambda h, p: bound.put((h, p)), **kw)
+            except BaseException as e:   # Surface in the test.
+                box['error'] = e
+                bound.put(None)
+
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        addr = bound.get(timeout=60)
+        assert addr is not None, box.get('error')
+        return addr[0], addr[1], t, box
+
+    @staticmethod
+    def _session(host, port, lines):
+        with socket.create_connection((host, port), timeout=60) as c:
+            c.sendall(('\n'.join(lines) + '\n').encode())
+            c.shutdown(socket.SHUT_WR)
+            out = b''
+            while True:
+                chunk = c.recv(65536)
+                if not chunk:
+                    break
+                out += chunk
+        return [json.loads(l) for l in out.decode().splitlines() if l]
+
+    def test_round_trip_matches_serve_lines(self, served):
+        path, stream = served
+        lines = _lines(stream, frames=400)
+        host, port, t, box = self._start(path, max_sessions=1)
+        got = self._session(host, port, lines)
+        t.join(timeout=60)
+        assert not t.is_alive() and box.get('counts') == [len(got)]
+        want = serve.serve_lines(path, io.StringIO('\n'.join(lines) + '\n'),
+                                 device='cpu')
+        assert len(got) == len(want) >= 5
+        assert got == [dict(w, latency_ms=g['latency_ms'])
+                       for g, w in zip(got, want)]
+
+    def test_sessions_get_fresh_state(self, served):
+        path, stream = served
+        lines = _lines(stream, step=40, frames=320)
+        host, port, t, box = self._start(path, max_sessions=2)
+        first = self._session(host, port, lines)
+        second = self._session(host, port, lines)
+        t.join(timeout=60)
+        assert not t.is_alive()
+        assert box.get('counts') == [len(first), len(second)]
+        assert len(first) >= 1
+        assert [d['score1'] for d in first] == [d['score1'] for d in second]
+
+    def test_survives_client_reset(self, served):
+        path, stream = served
+        host, port, t, box = self._start(path, max_sessions=2)
+        s = socket.create_connection((host, port), timeout=60)
+        s.sendall(b'not json\n')
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                     struct.pack('ii', 1, 0))
+        s.close()
+        got = self._session(host, port, _lines(stream, frames=200))
+        t.join(timeout=60)
+        assert not t.is_alive() and 'error' not in box
+        assert len(got) >= 1 and box['counts'][1] == len(got)
+
+    def test_survives_binary_probe(self, served):
+        path, stream = served
+        host, port, t, box = self._start(path, max_sessions=2)
+        with socket.create_connection((host, port), timeout=60) as s:
+            s.sendall(b'\x16\x03\x01\x02\x00\xff\xfe binary probe\n')
+            s.shutdown(socket.SHUT_WR)
+            while s.recv(65536):
+                pass
+        got = self._session(host, port, _lines(stream, frames=200))
+        t.join(timeout=60)
+        assert not t.is_alive() and 'error' not in box
+        assert box['counts'][0] == -1 and box['counts'][1] == len(got) >= 1
+
+    def test_idle_timeout_aborts_the_session(self, served):
+        path, stream = served
+        host, port, t, box = self._start(path, max_sessions=2,
+                                         idle_timeout_s=0.5)
+        with socket.create_connection((host, port), timeout=60) as idle:
+            got = b''
+            while True:               # The server gives up and closes.
+                chunk = idle.recv(65536)
+                if not chunk:
+                    break
+                got += chunk
+        assert got == b''
+        served_lines = self._session(host, port, _lines(stream, frames=200))
+        t.join(timeout=60)
+        assert box['counts'] == [-1, len(served_lines)]
+
+    def test_bad_address_rejected(self):
+        for bad in ('tcp://nohost', 'tcp://h:notaport', 'tcp://:-5'):
+            with pytest.raises(ValueError):
+                serve._parse_tcp(bad)
+        assert serve._parse_tcp('tcp://0.0.0.0:7355') == ('0.0.0.0', 7355)
+        assert serve._parse_tcp('tcp://[::1]:80') == ('::1', 80)
+        assert serve._parse_tcp('tcp://:0') == ('', 0)
+
+    def test_ipv6_listener(self, served):
+        if not socket.has_ipv6:
+            pytest.skip('platform has no IPv6')
+        try:
+            probe = socket.socket(socket.AF_INET6, socket.SOCK_STREAM)
+            probe.bind(('::1', 0))
+            probe.close()
+        except OSError:
+            pytest.skip('IPv6 loopback unavailable')
+        path, stream = served
+        host, port, t, box = self._start(path, max_sessions=1,
+                                         address='tcp://[::1]:0')
+        got = self._session('::1', port, _lines(stream, frames=200))
+        t.join(timeout=60)
+        assert not t.is_alive() and 'error' not in box
+        assert box.get('counts') == [len(got)] and len(got) >= 1
