@@ -48,9 +48,11 @@ drives the two main paths once:
   switches three times) -> a CCA model through ``cli.decoding.main`` ->
   ``cli.infer.main --comparison_test`` (reductions first and lda x
   decision rules wta, stepped and ssd x windows of 10 to 1000 frames:
-  K1 twice a pair, the state-space decoder's kernel S1 once a window)
-  -> the codelab stream served with ``--serve_decoder ssd``, synchronous
-  and pipelined -> one TCP session of ``serve_socket`` -> ``--selftest``.
+  K1 twice a pair; the state-space decoder's kernel S1 once an ssd pair,
+  its sequence form deciding all six window sizes) -> the codelab
+  stream served with ``--serve_decoder ssd`` (S1's window form once a
+  window), synchronous and pipelined -> one TCP session of
+  ``serve_socket`` -> ``--selftest``.
 
 Decisions must track the planted switch, served scores must match a
 CPU decode of the same stream with the plain versions, the decoding
@@ -64,8 +66,10 @@ cohort CSV, and its short copy the CPU's grids. The infer sweep's lda +
 wta accuracy must be above 0.9 at windows of 400 frames or more, and its
 accuracies equal the same sweep's on the CPU (ssd within one window's
 share); both serving modes and the TCP session must give the same
-decisions; S1 must match its plain version on the card over the test
-file's windows.
+decisions; S1's window form must match its plain version on the card
+over the test file's windows, and its sequence form the window form bit
+for bit over an ssd pair's six streams and the plain version over their
+first windows.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -76,9 +80,12 @@ result. The line before the last holds the kernels' numbers as JSON; the
 last line is {"ok": true, "device": {...}}.
 """
 
+import collections
 import contextlib
+import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -130,7 +137,7 @@ F32_SYMBOL = 'fused_cca_decode_cluster_kernel'  # K1's float32 kernel.
 # Phase 11: the state-space decoder (kernel S1) and the infer sweep. The
 # infer corpus: train files attending speaker 1, a test file whose
 # attention switches every INFER_SEGMENT frames (three switches).
-S1_SYMBOL = 'ssd_update_kernel'
+S1_WINDOW = 'ssd_window_kernel'                # S1's window form.
 SSD_TOL = 1e-4                                 # z, eta, p, bounds: S1 vs plain.
 SSD_ERROR_BAR = 0.15                           # tests/test_attention_decoder.py.
 INFER_TRAIN_FILES, INFER_SEGMENT, INFER_SEGMENTS = 3, 4500, 4
@@ -138,8 +145,17 @@ INFER_GATE = 0.9                               # lda + wta at >= 400 frames.
 # Window sizes of the CPU's ssd sweep (the plain SSD takes about 0.2 s a
 # window on a CPU, so the CPU check of ssd covers the large windows).
 INFER_CPU_SSD_SIZES = [700, 1000]
+# S1's sequence form against its plain version on the card: the first
+# windows of each stream of an ssd pair (the plain SSD takes some 0.7 s a
+# window step there).
+SSD_PLAIN_WINDOWS = 3
 REPO = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(REPO, 'build')
+# S1's chain measurements (s1_bound): a source of their own that includes
+# S1's, built beside the kernel library, not into it.
+S1_CHAIN_SOURCE = os.path.join(REPO, 'chip_smoke_csrc', 's1_chain.cu')
+S1_LATENCY_KINDS = ('fadd', 'mufu_ex2', 'fadd_mufu_rcp', 'expf', 'fdiv_rn',
+                    'newton_step', 'newton_step_serial')
 
 
 def log(*parts):
@@ -286,23 +302,141 @@ def decode_params(torch, rng, f1, f2, dims, device):
             'lda_intercept': t(-0.25)}
 
 
-def hmma_count(library, symbol='fused_cca_decode_mma_kernel'):
-    """Tensor-core (HMMA) instructions in the SASS of the kernel whose
-    name holds ``symbol``, as cuobjdump lists them; None without
-    cuobjdump."""
+def sass_functions(library):
+    """{function name: its SASS lines} of the library, as cuobjdump
+    lists them; None without cuobjdump."""
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     if not os.path.exists(tool):
         return None
     sass = subprocess.run([tool, '-sass', str(library)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True, check=True).stdout
-    count, inside = 0, False
+    functions, lines = {}, None
     for line in sass.splitlines():
         if 'Function :' in line:
-            inside = symbol in line
-        elif inside and 'HMMA' in line:
-            count += 1
-    return count
+            lines = functions.setdefault(line.split(':', 1)[1].strip(), [])
+        elif lines is not None:
+            lines.append(line)
+    return functions
+
+
+# SASS as cuobjdump lists it: address, guard predicate, opcode, operands.
+SASS_LINE = re.compile(r'/\*([0-9a-f]+)\*/\s+(@!?U?P[0-9T]\s+)?'
+                       r'([A-Z][A-Z0-9_.]*)\s*([^;]*);')
+SASS_REGISTER = re.compile(r'\bU?[RP]\d+\b')   # RZ, PT: no dependence.
+SASS_NO_DEST = {'ST', 'STG', 'STS', 'STL', 'RED', 'BRA', 'BSSY', 'BSYNC',
+                'EXIT', 'CALL', 'RET', 'NOP', 'BAR', 'WARPSYNC', 'YIELD'}
+
+
+def sass_class(opcode):
+    """What a SASS instruction on a dependent chain is weighed as: 'fp32'
+    (FADD, FMUL, FFMA), 'mufu_<op>', 'shfl' or 'other'."""
+    base, _, rest = opcode.partition('.')
+    if base in ('FADD', 'FMUL', 'FFMA'):
+        return 'fp32'
+    if base == 'MUFU':
+        return 'mufu_' + rest.split('.')[0].lower()
+    return 'shfl' if base == 'SHFL' else 'other'
+
+
+def _sass_dests(opcode, operands):
+    """How many leading operands an instruction writes."""
+    base = opcode.split('.')[0]
+    if base in SASS_NO_DEST:
+        return 0
+    predicate = [bool(re.fullmatch(r'U?P[0-9T]', o)) for o in operands]
+    if base.endswith('SETP') or base == 'FCHK':
+        return (predicate + [False]).index(False)
+    if base == 'SHFL':
+        return 2
+    return 1 + (len(operands) > 1 and predicate[1])
+
+
+def sass_chain(lines, cycles):
+    """The heaviest chain of dependent instructions in the SASS ``lines``
+    of a straight-line kernel, from the register its only global load
+    (LDG) writes to the one its only global store (STG) stores. Each
+    instruction weighs ``cycles[sass_class(opcode)]``, 0 where the class
+    is not there. Returns (cycles, {class: count}, opcodes in order).
+
+    A division is walked on its fast path: a branch on a predicate FCHK
+    wrote is taken when negated (@!P: no special case) and not
+    otherwise; another guarded branch, a backward one or a CALL on the
+    walk raises."""
+    code = []
+    for line in lines:
+        match = SASS_LINE.search(line)
+        if match:
+            addr, guard, opcode, operands = match.groups()
+            code.append((int(addr, 16), (guard or '').strip(), opcode,
+                         [o.strip() for o in operands.split(',')
+                          if o.strip()]))
+    index = {addr: i for i, (addr, _, _, _) in enumerate(code)}
+    ready = {}          # register: (cycles, opcodes) of the chain into it
+    checked = set()     # predicates FCHK wrote last
+    loads, i = 0, 0
+    while i < len(code):
+        addr, guard, opcode, operands = code[i]
+        base = opcode.split('.')[0]
+        i += 1
+        if base == 'BRA':
+            if guard and guard.lstrip('@!') not in checked:
+                raise ValueError('guarded branch at %#x is not a division '
+                                 'check' % addr)
+            if guard and not guard.startswith('@!'):
+                continue
+            target = int(operands[-1], 16)
+            if target <= addr:
+                raise ValueError('backward branch at %#x: not straight-line'
+                                 % addr)
+            i = index[target]
+            continue
+        if base in ('CALL', 'EXIT', 'RET'):
+            raise ValueError('%s at %#x before the store' % (base, addr))
+        if base == 'STG':
+            stored = SASS_REGISTER.findall(operands[-1])
+            if loads != 1 or not stored or stored[0] not in ready:
+                raise ValueError('the store at %#x does not hang on the '
+                                 'kernel\'s one load' % addr)
+            weight, path = ready[stored[0]]
+            return weight, dict(collections.Counter(map(sass_class, path))), \
+                list(path)
+        n = _sass_dests(opcode, operands)
+        dests = [r for o in operands[:n] for r in SASS_REGISTER.findall(o)]
+        sources = [r for o in operands[n:] for r in SASS_REGISTER.findall(o)]
+        if guard:       # A guarded write keeps the old value when off.
+            sources += SASS_REGISTER.findall(guard) + dests
+        links = [ready[r] for r in sources if r in ready]
+        if base == 'LDG':
+            loads += 1
+            link = (0.0, ())
+        elif links:
+            # Of equally heavy links, the longer: an unweighed instruction
+            # (a shuffle) on one branch of a select stays counted.
+            weight, path = max(links, key=lambda link: (link[0],
+                                                        len(link[1])))
+            link = (weight + cycles.get(sass_class(opcode), 0.0),
+                    path + (opcode,))
+        else:
+            link = None
+        for dest in dests:
+            if link is None:
+                ready.pop(dest, None)
+            else:
+                ready[dest] = link
+        checked = (checked | set(dests) if base == 'FCHK'
+                   else checked - set(dests))
+    raise ValueError('no global store')
+
+
+def hmma_count(library, symbol='fused_cca_decode_mma_kernel'):
+    """Tensor-core (HMMA) instructions in the SASS of the kernel whose
+    name holds ``symbol``; None without cuobjdump."""
+    functions = sass_functions(library)
+    if functions is None:
+        return None
+    return sum('HMMA' in line for name, lines in functions.items()
+               if symbol in name for line in lines)
 
 
 def phase_device(torch):
@@ -318,11 +452,15 @@ def phase_device(torch):
                              'got %s' % (capability,))
     from telluride_decoding_torch import _native, kernels
     t0 = time.perf_counter()
+    chain_build = s1_chain_build()      # nvcc runs beside the library's.
     path = kernels.build()
     log('phase 1 build: %s in %.1f s' % (path, time.perf_counter() - t0))
     t0 = time.perf_counter()
     log('phase 1 native codec: %s in %.1f s'
         % (_native.build(), time.perf_counter() - t0))
+    log('phase 1 S1 chain measurements (%s): %s'
+        % (os.path.relpath(S1_CHAIN_SOURCE, REPO),
+           s1_chain_library(chain_build)))
     log_lines = (kernels.BUILD_DIR / 'build.log').read_text().splitlines()
     entry, spills = None, ''
     for line in log_lines:
@@ -798,10 +936,11 @@ def reset_launches():
     from telluride_decoding_torch.ops.fused_frontend import (
         fused_envelope_lagstack)
     from telluride_decoding_torch.ops.lagstack import lag_stack
-    from telluride_decoding_torch.ops.ssd_update import ssd_update
+    from telluride_decoding_torch.ops.ssd_update import (ssd_sequence,
+                                                         ssd_update)
     counters = {'fused_cca_decode': fused_cca_decode, 'lag_stack': lag_stack,
                 'fused_envelope_lagstack': fused_envelope_lagstack,
-                'ssd_update': ssd_update}
+                'ssd_update': ssd_update, 'ssd_sequence': ssd_sequence}
     for fn in counters.values():
         fn.launches = 0
     return lambda: {name: fn.launches for name, fn in counters.items()}
@@ -2155,6 +2294,60 @@ def same_decisions(got, want):
         for g, w in zip(got, want))
 
 
+def sm_clock_mhz(torch, fn, calls):
+    """The SM clock in MHz as nvidia-smi reads it while ``calls`` calls
+    of ``fn`` (enqueued first) keep the card busy."""
+    for _ in range(calls):
+        fn()
+    clock = subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.sm', '--format=csv,noheader,'
+         'nounits'], stdout=subprocess.PIPE, text=True,
+        check=True).stdout.split()[0]
+    torch.cuda.synchronize()
+    return float(clock)
+
+
+def s1_split(torch, device, dec):
+    """S1's window form at the shape of ``dec`` (the factory's decoder) on
+    a seeded state updated in place: device ms a window at (outer,
+    inner, newton) trip counts (20, 1, 10), (20, 1, 0) and (1, 1, 10).
+    The first two differ by the Newton steps alone (outer x k_w x newton
+    of them), so their difference over that count is one Newton step.
+    Also the SM clock under that load. A time the profiler did not see
+    is None, and so is the step it would give."""
+    from telluride_decoding_torch.ops import ssd_update as ops
+    k_w = dec.k_w
+    rng = np.random.RandomState(0)
+    a_0 = 2 + 0.2 ** 2 / 5
+    consts = ops.constants_views(torch.tensor(
+        [-0.3994, -1.5103, 641.13, 4043.4, 375.81, 6279.1, a_0,
+         0.2 * (a_0 - 1), 1.0], device=device))
+    state = ops.state_views(torch.cat([
+        torch.tensor([-0.3994, -1.5103, 1.7060, 0.64395]),
+        torch.zeros(2 * (k_w + 1)), torch.full((k_w,), 0.3),
+        torch.zeros(k_w)]).to(device), k_w)
+    r1 = torch.as_tensor(np.exp(-0.4 + 0.6 * rng.randn(k_w)),
+                         dtype=torch.float32, device=device)
+    r2 = torch.as_tensor(np.exp(-1.5 + 0.9 * rng.randn(k_w)),
+                         dtype=torch.float32, device=device)
+
+    def update(trips):
+        return lambda: ops.ssd_update(state, r1, r2, consts, *trips, k_w)
+    trips = (dec.outer_iter, dec.inner_iter, dec.newton_iter)
+    split = {}
+    for cut in (trips, trips[:2] + (0,), (1, 1, dec.newton_iter)):
+        split['%d/%d/%d' % cut] = device_ms(torch, update(cut), S1_WINDOW,
+                                            reps=20)
+    clock = sm_clock_mhz(torch, update(trips), 2000)
+    full, rest = list(split.values())[:2]
+    newton_ns = (None if None in (full, rest) else
+                 (full - rest) / (trips[0] * k_w * trips[2]) * 1e6)
+    return dict(split_ms=split, newton_step_ns=newton_ns,
+                sm_clock_mhz=clock,
+                newton_step_cycles=(None if newton_ns is None else
+                                    newton_ns * clock / 1e3))
+
+
 def s1_against_plain(torch, device, model_dir, data_dir):
     """S1 against its plain version on the card over the test file's
     100-frame window scores (two speakers, lda): the decider runs S1 a
@@ -2215,7 +2408,7 @@ def s1_against_plain(torch, device, model_dir, data_dir):
         return dec.attention(c1[0], c2[0])
     host = host_ms(torch, call, reps=100)
     ms = time_ms(torch, call, reps=50)
-    dev = device_ms(torch, call, S1_SYMBOL, reps=20)
+    dev = device_ms(torch, call, S1_WINDOW, reps=20)
     state = ops.state_views(states[0].clone(), k_w)
     plain_ms = time_ms(torch, lambda: ops.ssd_update_reference(
         state, r1[0], r2[0], consts, dec.outer_iter, dec.inner_iter,
@@ -2242,18 +2435,246 @@ def s1_against_plain(torch, device, model_dir, data_dir):
                 bound_by=limited_by, max_abs_err=err)
 
 
+def ssd_pair_streams(device, scores):
+    """The six streams of an ssd pair as ``run_reduction_test`` forms
+    them (WINDOW_LIST sizes over the test file's frame scores): fresh
+    tuned decoders and their window correlations."""
+    from telluride_decoding_torch.cli import infer
+    from telluride_decoding_torch.decide import attention_decoder
+    from telluride_decoding_torch.decode.infer_decoder import Decoder
+    (s1, l1), (s2, l2) = scores
+    decoders, r1s, r2s = [], [], []
+    for size in infer.WINDOW_LIST:
+        c1, _ = Decoder.window_means(s1, l1, size)
+        c2, labels = Decoder.window_means(s2, l2, size)
+        c1, c2 = [float(v) for v in c1], [float(v) for v in c2]
+        dec = attention_decoder.create_attention_decoder(
+            'ssd', window_step=size // 2, device=device)
+        first = infer.find_first_segment(np.asarray(labels))
+        if first:
+            dec.tune(c1[:first], c2[:first])
+        decoders.append(dec)
+        r1s.append(c1)
+        r2s.append(c2)
+    return decoders, r1s, r2s
+
+
+def cut_sequence(launch, windows):
+    """The first ``windows`` windows of each stream of a sequence launch's
+    arguments (states copied)."""
+    import torch
+    k_w, offsets = launch['k_w'], launch['offsets']
+    keep = [slice(lo, min(hi, lo + k_w - 1 + windows))
+            for lo, hi in zip(offsets, offsets[1:])]
+    return dict(launch, states=launch['states'].clone(),
+                r1_series=torch.cat([launch['r1_series'][k] for k in keep]),
+                r2_series=torch.cat([launch['r2_series'][k] for k in keep]),
+                offsets=np.cumsum([0] + [k.stop - k.start for k in keep]))
+
+
+def s1_sequence_check(torch, device, model_dir, data_dir):
+    """S1's sequence form on the card: the six streams of an ssd pair
+    (lda) in one launch, bit for bit against the window form over the
+    same streams (decisions, z, eta and the final states), and within
+    SSD_TOL of ssd_sequence_reference on the card over the first
+    SSD_PLAIN_WINDOWS windows of each stream; the whole launch's device
+    ms (CUDA events), per window of its longest stream."""
+    from telluride_decoding_torch.cli import infer
+    from telluride_decoding_torch.ops import ssd_update as ops
+    decoder = infer.load_model(model_dir, 'lda', device)
+    _, bd1, _, bd2 = infer.get_data_for_model(
+        data_dir, ['train'], ['test'], decoder, 'intensity', 'intensity2',
+        include_train=False)
+    scores = (decoder.frame_scores(bd1), decoder.frame_scores(bd2))
+    by_sequence, r1s, r2s = ssd_pair_streams(device, scores)
+    by_window = ssd_pair_streams(device, scores)[0]
+    # The launch attention_sequences makes for fresh decoders: the states
+    # and constants as they are now, each stream's whole series of
+    # correlations |mean + offset| (offset 0) in float32.
+    first = by_sequence[0]
+    states, consts = ops.stack_streams([d._state for d in by_sequence],
+                                       [d._constants() for d in by_sequence])
+    launch = dict(
+        states=states, consts=consts,
+        r1_series=torch.as_tensor(np.abs(np.concatenate(r1s)),
+                                  dtype=torch.float32, device=device),
+        r2_series=torch.as_tensor(np.abs(np.concatenate(r2s)),
+                                  dtype=torch.float32, device=device),
+        offsets=np.cumsum([0] + [len(r) for r in r1s]),
+        outer_iter=first.outer_iter, inner_iter=first.inner_iter,
+        newton_iter=first.newton_iter, k_w=first.k_w, at=-1 - first.k_f)
+    before = (ops.ssd_update.launches, ops.ssd_sequence.launches)
+    got = type(first).attention_sequences(by_sequence, r1s, r2s)
+    t0 = time.perf_counter()
+    want = [[dec.attention(a, b) for a, b in zip(r1, r2)]
+            for dec, r1, r2 in zip(by_window, r1s, r2s)]
+    window_s = time.perf_counter() - t0
+    windows = ops.sequence_windows(launch['offsets'], launch['k_w'])
+    if (ops.ssd_sequence.launches - before[1] != 1 or
+            ops.ssd_update.launches - before[0] != sum(windows)):
+        raise AssertionError('the sequence check launched S1 %d / %d times'
+                             % (ops.ssd_sequence.launches - before[1],
+                                ops.ssd_update.launches - before[0]))
+    same = got == want and all(
+        a.z_dyn == b.z_dyn and a.eta_dyn == b.eta_dyn and torch.equal(
+            ops.pack(list(a._state)), ops.pack(list(b._state)))
+        for a, b in zip(by_sequence, by_window))
+    if not same:
+        raise AssertionError('the sequence form differs from the window '
+                             'form over the same streams')
+    # The whole launch again, timed alone; it must be the one
+    # attention_sequences made (the decoders' z_dyn and eta_dyn past
+    # their k_w seeds).
+    timed = dict(launch, states=launch['states'].clone())
+    result = []
+    seq_ms = time_ms(torch, lambda: result.append(ops.ssd_sequence(**timed)),
+                     reps=1, warmup=0)
+    decided = [[z, eta] for d in by_sequence
+               for z, eta in zip(d.z_dyn[d.k_w:], d.eta_dyn[d.k_w:])]
+    if result[0][1].cpu().tolist() != decided:
+        raise AssertionError('the timed sequence launch is not the one '
+                             'attention_sequences made')
+    cut = cut_sequence(launch, SSD_PLAIN_WINDOWS)
+    kernel_states, kernel_out = ops.ssd_sequence(
+        **dict(cut, states=cut['states'].clone()))
+    t0 = time.perf_counter()
+    want_states, want_out = ops.ssd_sequence_reference(**cut)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / SSD_PLAIN_WINDOWS
+    err = max(max_err(torch, kernel_out, want_out),
+              max_err(torch, kernel_states, want_states))
+    log('phase 11 ssd_sequence (S1, sequence form): %d streams, %s windows, '
+        'one launch; decisions, z, eta and states bit for bit those of %d '
+        'window launches (%.2f s); the whole launch %.1f ms on the device, '
+        '%.4f ms a window of its longest stream; against the plain version '
+        'on the card over %d windows a stream within %.3g (plain %.1f ms a '
+        'window step)' % (len(windows), windows, sum(windows), window_s,
+                          seq_ms, seq_ms / max(windows), SSD_PLAIN_WINDOWS,
+                          err, plain_ms))
+    if not err <= SSD_TOL:
+        raise AssertionError('ssd_sequence disagrees with its plain version '
+                             '(tolerance %g abs)' % SSD_TOL)
+    return dict(sequence_windows=windows, sequence_ms=seq_ms,
+                sequence_ms_per_window=seq_ms / max(windows),
+                sequence_max_abs_err=err, sequence_plain_ms=plain_ms)
+
+
+def s1_chain_build():
+    """Starts nvcc on S1_CHAIN_SOURCE (with the S1 source it includes)
+    into a library under build/s1_chain/ named by their hash, unless it
+    is there; returns (path, the nvcc process or None)."""
+    from telluride_decoding_torch import kernels
+    digest = hashlib.sha256(' '.join(kernels.NVCC_FLAGS).encode())
+    for source in (S1_CHAIN_SOURCE, kernels.CSRC_DIR / 'ssd_update.cu'):
+        with open(source, 'rb') as f:
+            digest.update(f.read())
+    path = os.path.join(BUILD, 's1_chain',
+                        'libs1_chain_%s.so' % digest.hexdigest()[:16])
+    if os.path.exists(path):
+        return path, None
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    nvcc = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    return path, subprocess.Popen(
+        [nvcc, *kernels.NVCC_FLAGS, '-shared', S1_CHAIN_SOURCE, '-o',
+         path + '.tmp'], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def s1_chain_library(build=None):
+    """The S1 chain library's path once built: waits for ``build`` (what
+    s1_chain_build returned), or builds it now; raises if nvcc failed."""
+    path, proc = build or s1_chain_build()
+    if proc is not None:
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError('nvcc failed on %s (rc %d):\n%s'
+                               % (S1_CHAIN_SOURCE, proc.returncode,
+                                  output[-4000:]))
+        os.replace(path + '.tmp', path)
+    return path
+
+
+def s1_latencies(torch, device, library):
+    """SM cycles of one dependent instruction of each S1_LATENCY_KINDS on
+    one warp of ``device`` (tdt_s1_latency in S1_CHAIN_SOURCE)."""
+    import ctypes
+    from telluride_decoding_torch import kernels
+    lib = ctypes.CDLL(library)
+    lib.tdt_s1_latency.argtypes = [ctypes.c_void_p] * 3
+    lib.tdt_s1_latency.restype = ctypes.c_int
+    out = torch.zeros(len(S1_LATENCY_KINDS), device=device)
+    sink = torch.zeros_like(out)
+    kernels.check(lib.tdt_s1_latency(out.data_ptr(), sink.data_ptr(),
+                                     kernels.stream_handle(device)),
+                  's1_latency')
+    return dict(zip(S1_LATENCY_KINDS, out.tolist()))
+
+
+def s1_bound(torch, device, dec):
+    """S1's chain bound: the dependent chain of one Newton step
+    (newton_step in csrc/ssd_update.cu) as this build's SASS has it
+    (S1_CHAIN_SOURCE's s1_newton_step; s1_newton_step_serial, its three
+    divisions in series, beside it), weighed with the latencies measured
+    here, times the Newton steps of a window of ``dec`` (the factory's
+    decoder) at the SM clock under load; with the Newton/rest split
+    (s1_split). Instructions on the chain other than FP32 and MUFU (a
+    shuffle, a select) are counted but weigh nothing, their latencies
+    not measured, so the bound stays below what the chain takes."""
+    library = s1_chain_library()
+    lat = s1_latencies(torch, device, library)
+    cycles = {'fp32': lat['fadd'], 'mufu_ex2': lat['mufu_ex2'],
+              'mufu_rcp': lat['fadd_mufu_rcp'] - lat['fadd']}
+    functions = sass_functions(library)
+    if functions is None:
+        raise AssertionError('cuobjdump not found: S1\'s chain is not '
+                             'counted')
+    step, counts, path = sass_chain(functions['s1_newton_step'], cycles)
+    serial, serial_counts, _ = sass_chain(
+        functions['s1_newton_step_serial'], cycles)
+    split = s1_split(torch, device, dec)
+    clock = split['sm_clock_mhz']
+    steps = dec.outer_iter * dec.k_w * dec.newton_iter
+    chain_ms = steps * step / (clock * 1e3)
+    cycles_in_filter = split['newton_step_cycles']
+    log('phase 11 S1 split (window form, k_w %d), device ms a window at '
+        'outer/inner/newton trips: %s; one Newton step %s cycles inside '
+        'the filter; SM clock %.0f MHz; latencies in cycles %s; one Newton '
+        'step\'s chain in the SASS: %s = %.1f cycles (%s); with serial '
+        'divisions: %s = %.1f cycles; chain bound: %d Newton steps, %.4f '
+        'ms a window'
+        % (dec.k_w,
+           json.dumps({k: v if v is None else round(v, 4)
+                       for k, v in split['split_ms'].items()}),
+           'not measured' if cycles_in_filter is None else
+           '%.1f' % cycles_in_filter, clock,
+           json.dumps({k: round(v, 2) for k, v in lat.items()}),
+           json.dumps(counts), step, ' '.join(path),
+           json.dumps(serial_counts), serial, steps, chain_ms))
+    return dict(chain_bound_ms=chain_ms, chain_cycles_per_step=step,
+                chain_instructions=counts,
+                chain_serial_cycles_per_step=serial,
+                chain_serial_instructions=serial_counts,
+                newton_split_ms=split['split_ms'],
+                newton_step_cycles=split['newton_step_cycles'],
+                sm_clock_mhz=clock, latency_cycles=lat)
+
+
 def phase_attention(torch, device, smi):
     """The state-space decoder (S1) and the rest of serving at codelab
     width. Main path (counted launches): ``cli.infer.main
     --comparison_test`` on a seeded two-speaker corpus (reductions first
     and lda x wta, stepped and ssd x WINDOW_LIST; two K1 launches a pair,
-    one S1 launch a ssd window), then the phase-4 stream served with
+    one launch of S1's sequence form an ssd pair and none of its window
+    form), then the phase-4 stream served with
     ``--serve_decoder ssd`` synchronous and ``--serve_pipeline``, one TCP
     session of ``serve_socket`` and ``--selftest``. Checks: the sweep's
     gates (check_infer, against the same sweep on the CPU in a process
     of its own), identical decisions of the two serving modes, the TCP
     session and serve_lines, the SSD's tracking of the planted switch,
-    and S1 against its plain version on the card (s1_against_plain)."""
+    S1's window form against its plain version on the card
+    (s1_against_plain), its sequence form against the window form and
+    the plain version (s1_sequence_check), and S1's Newton/rest split,
+    latency table and chain bound (s1_bound)."""
     from telluride_decoding_torch.cli import infer, serve
     from telluride_decoding_torch.decide import attention_decoder
     ssd = attention_decoder.create_attention_decoder('ssd', device='cpu')
@@ -2299,11 +2720,21 @@ def phase_attention(torch, device, smi):
                 raise AssertionError('--selftest failed')
         selftest_s = time.perf_counter() - t0
         launches = read_launches()
-        require_launched(infer_launches, ('fused_cca_decode', 'ssd_update'),
-                         'infer')
+        require_launched(infer_launches, ('fused_cca_decode',
+                                          'ssd_sequence'), 'infer')
+        ssd_pairs = sum(decoder == 'ssd' for _, decoder in card)
+        if (infer_launches['ssd_sequence'] != ssd_pairs or
+                infer_launches['ssd_update']):
+            raise AssertionError(
+                'the infer sweep launched S1 %d times in sequence form and '
+                '%d in window form for %d ssd pairs (one and none a pair)'
+                % (infer_launches['ssd_sequence'],
+                   infer_launches['ssd_update'], ssd_pairs))
         require_launched(launches, ('fused_cca_decode', 'ssd_update'),
                          'attention')
         s1 = s1_against_plain(torch, device, model_dir, data_dir)
+        s1.update(s1_sequence_check(torch, device, model_dir, data_dir))
+        s1.update(s1_bound(torch, device, ssd))
         _, cpu_err = cpu_proc.communicate(timeout=600)
         if cpu_proc.returncode != 0:
             raise AssertionError('CPU infer sweep failed: %s'
@@ -2379,9 +2810,16 @@ def main():
              source='telluride_decoding_torch/csrc/ssd_update.cu',
              replaces='telluride_decoding_tpu/decide/attention_decoder.py:88',
              launches=launches['ssd_update'],
+             sequence_launches=launches['ssd_sequence'],
              note='port of a jitted XLA program (_ssd_update), not of a '
-                  'Pallas kernel; bounded by a chain of dependent Newton '
-                  'steps, not by bytes or operations', **s1, **common),
+                  'Pallas kernel; two forms over one window update: '
+                  'ssd_window_kernel (launches, ms: serving) and '
+                  'ssd_sequence_kernel (sequence_*: the infer sweep); '
+                  'bounded by the latency of a chain of dependent Newton '
+                  'steps (chain_bound_ms: chain_instructions of one step '
+                  'counted in this build\'s SASS, weighed with '
+                  'latency_cycles measured in this run), not by bytes or '
+                  'operations (bound_ms)', **s1, **common),
     ]
     log(smi)
     log(json.dumps({'kernels': kernels}))

@@ -206,9 +206,8 @@ def run_reduction_test(model_dir: str, tf_dir: str, train_files,
     s1, l1 = model_object.frame_scores(bd1_test)
     s2, l2 = model_object.frame_scores(bd2_test)
     window_list = window_list or WINDOW_LIST
-    window_results = []
+    d1_sizes, d2_sizes, label_sizes, decoders = [], [], [], []
     for window_size in window_list:
-        window_step = window_size // 2
         d1_arr, _ = infer_decoder.Decoder.window_means(s1, l1, window_size)
         d2_arr, lab_arr = infer_decoder.Decoder.window_means(s2, l2,
                                                              window_size)
@@ -216,15 +215,25 @@ def run_reduction_test(model_dir: str, tf_dir: str, train_files,
         d2_results = [float(v) for v in d2_arr]
         labels = [float(v) for v in lab_arr]
         decoder = attention_decoder.create_attention_decoder(
-            decoder_type, window_step=window_step, frame_rate=frame_rate,
-            device=device)
+            decoder_type, window_step=window_size // 2,
+            frame_rate=frame_rate, device=device)
         end_first_section = find_first_segment(np.asarray(labels))
         if end_first_section:
             decoder.tune(d1_results[:end_first_section],
                          d2_results[:end_first_section])
-        attention = np.array([decoder.attention(c1, c2)
-                              for c1, c2 in zip(d1_results, d2_results)],
-                             dtype=np.float64)
+        d1_sizes.append(d1_results)
+        d2_sizes.append(d2_results)
+        label_sizes.append(labels)
+        decoders.append(decoder)
+    # Every size's windows are known: the decision rule takes them all at
+    # once (the state-space decoder in one launch of S1).
+    decisions = type(decoders[0]).attention_sequences(decoders, d1_sizes,
+                                                      d2_sizes)
+    window_results = []
+    for window_size, d1_results, d2_results, labels, decided in zip(
+            window_list, d1_sizes, d2_sizes, label_sizes, decisions):
+        window_step = window_size // 2
+        attention = np.array(decided, dtype=np.float64)
         labels_col = np.reshape(np.asarray(labels), (-1, 1))
         correct = np.logical_xor(attention[:, 0:1] >= 0.5, labels_col)
         frac_correct = float(np.sum(correct)) / float(len(correct))

@@ -6,21 +6,26 @@ decoder (Miran et al. 2018) is the fixed-lag Bayesian filter of the JAX
 package (telluride_decoding_tpu/decide/attention_decoder.py:224-349):
 host ring buffers of the last k_w window correlations, and one window
 update a call once they are full, kernel S1 on the card
-(ops/ssd_update.py) or its plain version on the CPU.
+(ops/ssd_update.py) or its plain version on the CPU. Offline callers
+that know the correlations in advance decide whole streams with
+``attention_sequence`` and several decoders' streams at once with the
+class method ``attention_sequences``: for the state-space decoder, one
+launch of S1's sequence form.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Sequence, Tuple, Union
+from typing import List, NamedTuple, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from telluride_decoding_torch import device as device_policy
 from telluride_decoding_torch.ops.ssd_update import (  # noqa: F401
-    SsdConstants, SsdState, constants_views, pack, ssd_update,
-    ssd_update_reference, state_views)
+    SsdConstants, SsdState, WindowLauncher, constants_views, pack,
+    ssd_sequence, ssd_update, ssd_update_reference, stack_streams,
+    state_views)
 
 
 class AttentionDecoder:
@@ -31,6 +36,21 @@ class AttentionDecoder:
 
     def tune(self, r1, r2):
         del r1, r2
+
+    @classmethod
+    def attention_sequences(cls, decoders, r1s, r2s) -> List[List[Tuple]]:
+        """Decides several decoders' streams: for each decoder, the list of
+        results of successive ``attention`` calls on the pairs of
+        ``r1s[i]`` and ``r2s[i]``, and the decoders left as those calls
+        leave them. The state-space decoder does it in one kernel
+        launch."""
+        return [[dec.attention(a, b) for a, b in zip(r1, r2)]
+                for dec, r1, r2 in zip(decoders, r1s, r2s)]
+
+    def attention_sequence(self, r1s, r2s) -> List[Tuple]:
+        """Successive ``attention`` calls on the pairs of ``r1s`` and
+        ``r2s``, as attention_sequences decides them."""
+        return self.attention_sequences([self], [r1s], [r2s])[0]
 
 
 class StepAttentionDecoder(AttentionDecoder):
@@ -51,9 +71,10 @@ class StateSpaceAttentionDecoder(AttentionDecoder):
     """Fixed-lag Bayesian attention filter (Miran et al. 2018).
 
     On a CUDA device the state lives in one packed buffer on the card and
-    each window after the warm-up is one copy in (r1 and r2 from a pinned
-    staging buffer), one launch of S1 and one copy out (z and eta into
-    another pinned buffer)."""
+    each window after the warm-up is one launch of S1's window form,
+    which reads r1 and r2 from a pinned staging buffer and writes z and
+    eta into another, both through their device addresses, and one event
+    wait: no copy."""
 
     def __init__(self, outer_iter: int, inner_iter: int, newton_iter: int,
                  fs_corr: float, forward_lag: int = 0,
@@ -95,10 +116,9 @@ class StateSpaceAttentionDecoder(AttentionDecoder):
             torch.full((k_w,), 0.3), torch.zeros(k_w)]).to(self.device), k_w)
         if self.device.type == 'cuda':
             self._r_host = torch.empty((2, k_w), pin_memory=True)
-            self._r_dev = torch.empty((2, k_w), device=self.device)
-            self._out_dev = torch.empty((2, k_w), device=self.device)
-            self._out_host = torch.empty((2, k_w), pin_memory=True)
+            self._decision_host = torch.empty((2,), pin_memory=True)
             self._done = torch.cuda.Event()
+        self._launch = None       # S1's window form on these buffers.
         # Seeded with k_w zeros like the reference (:244-248), so z_dyn[i]
         # aligns with call index i.
         self.z_dyn = [0.0] * self.k_w
@@ -136,6 +156,7 @@ class StateSpaceAttentionDecoder(AttentionDecoder):
         self.mu_d = [mu_a, mu_u]
         self.mu_0 = [mu_a, mu_u]
         self._constants_cache = None     # mu_0 is a constant.
+        self._launch = None
         self._state.mu_d.copy_(torch.tensor(self.mu_d, dtype=torch.float32))
         self._state.rho_d.copy_(torch.tensor(self.rho_d,
                                              dtype=torch.float32))
@@ -152,15 +173,17 @@ class StateSpaceAttentionDecoder(AttentionDecoder):
             return float(z[at]), float(eta[at])
         self._r_host[0].numpy()[:] = self._r1_buf
         self._r_host[1].numpy()[:] = self._r2_buf
-        self._r_dev.copy_(self._r_host, non_blocking=True)
-        ssd_update(self._state, self._r_dev[0], self._r_dev[1],
-                   self._constants(), self.outer_iter, self.inner_iter,
-                   self.newton_iter, self.k_w, out=self._out_dev)
-        self._out_host.copy_(self._out_dev, non_blocking=True)
+        if self._launch is None:
+            self._launch = WindowLauncher(
+                self._state, self._r_host[0], self._r_host[1],
+                self._constants(), self.outer_iter, self.inner_iter,
+                self.newton_iter, self.k_w, decision=self._decision_host,
+                at=at)
+        self._launch()
         self._done.record()
         self._done.synchronize()
-        out = self._out_host.numpy()
-        return float(out[0, at]), float(out[1, at])
+        z, eta = self._decision_host.numpy()
+        return float(z), float(eta)
 
     def attention(self, r1, r2):
         """Processes one new correlation pair; returns (p, lower, upper).
@@ -168,15 +191,18 @@ class StateSpaceAttentionDecoder(AttentionDecoder):
         Returns (0.5, 0.5, 0.5) until the fixed-lag window fills
         (reference :442-452 semantics with k_f = 0)."""
         self.calls += 1
-        a1 = float(np.abs(np.mean(r1) + self._offset))
-        a2 = float(np.abs(np.mean(r2) + self._offset))
-        self._r1_buf = np.roll(self._r1_buf, -1)
-        self._r1_buf[-1] = a1
-        self._r2_buf = np.roll(self._r2_buf, -1)
-        self._r2_buf[-1] = a2
+        for buf, r in ((self._r1_buf, r1), (self._r2_buf, r2)):
+            buf[:-1] = buf[1:]
+            buf[-1] = self._correlation(r)
         if self.calls < self.k_w:
             return (0.5, 0.5, 0.5)
-        z, eta = self._update()
+        return self._decide(*self._update())
+
+    def _correlation(self, r) -> float:
+        return float(np.abs(np.mean(r) + self._offset))
+
+    def _decide(self, z: float, eta: float):
+        """Records a window's z and eta; returns (p, lower, upper)."""
         self.z_dyn.append(z)
         self.eta_dyn.append(eta)
         # Bounds in the documented order lower <= mean <= upper (the
@@ -185,6 +211,87 @@ class StateSpaceAttentionDecoder(AttentionDecoder):
         return (1.0 / (1 + np.exp(-z)),
                 1.0 / (1 + np.exp(-(z - half_width))),
                 1.0 / (1 + np.exp(-(z + half_width))))
+
+    @classmethod
+    def attention_sequences(cls, decoders, r1s, r2s):
+        """Successive ``attention`` calls of several state-space decoders
+        in one launch of S1's sequence form (its plain version on the
+        CPU); returns and leaves what those calls would.
+
+        On top of the base class's contract: the results come from the
+        same z and eta through the same float64 expressions, and each
+        decoder is left with the calls, ring buffers, packed state, z_dyn
+        and eta_dyn those calls would leave. The decoders share one
+        device, k_w, k_f and trip counts; each keeps its own constants
+        (tune sets mu_0)."""
+        decoders = list(decoders)
+        if not decoders:
+            return []
+        first = decoders[0]
+        shape = (first.device, first.k_w, first.k_f, first.outer_iter,
+                 first.inner_iter, first.newton_iter)
+        k_w = first.k_w
+        plans = []
+        for dec, r1, r2 in zip(decoders, r1s, r2s):
+            if (dec.device, dec.k_w, dec.k_f, dec.outer_iter,
+                    dec.inner_iter, dec.newton_iter) != shape:
+                raise ValueError('attention_sequences: the decoders differ '
+                                 'in device, window or trip counts.')
+            if len(r1) != len(r2):
+                raise ValueError('attention_sequences: %d r1 against %d r2.'
+                                 % (len(r1), len(r2)))
+            plans.append(_Plan(
+                dec, len(r1), min(len(r1), max(0, k_w - 1 - dec.calls)),
+                *(np.concatenate([buf, np.asarray(
+                    [dec._correlation(r) for r in rs], np.float32)])
+                  for buf, rs in ((dec._r1_buf, r1), (dec._r2_buf, r2)))))
+        launched = [p for p in plans if p.calls > p.warm]
+        decided = {}                    # id(decoder): its (z, eta) rows.
+        if launched:
+            states, consts = stack_streams(
+                [p.decoder._state for p in launched],
+                [p.decoder._constants() for p in launched])
+            # Call i updates on the ring full[i + 1:i + 1 + k_w], so the
+            # calls after the warm-up read the series full[warm + 1:].
+            offsets = np.cumsum(
+                [0] + [p.calls - p.warm + k_w - 1 for p in launched])
+            r1_series = torch.from_numpy(np.concatenate(
+                [p.full1[p.warm + 1:] for p in launched])).to(first.device)
+            r2_series = torch.from_numpy(np.concatenate(
+                [p.full2[p.warm + 1:] for p in launched])).to(first.device)
+            states, out = ssd_sequence(
+                states, consts, r1_series, r2_series, offsets,
+                first.outer_iter, first.inner_iter, first.newton_iter, k_w,
+                at=-1 - first.k_f)
+            out = out.cpu().numpy()
+            for b, p in enumerate(launched):
+                for field, new in zip(p.decoder._state,
+                                      state_views(states[b], k_w)):
+                    field.copy_(new)
+                rows = out[offsets[b] - b * (k_w - 1):][:p.calls - p.warm]
+                decided[id(p.decoder)] = [(float(z), float(eta))
+                                          for z, eta in rows]
+        results = []
+        for p in plans:
+            dec = p.decoder
+            results.append([(0.5, 0.5, 0.5)] * p.warm + [
+                dec._decide(z, eta) for z, eta in decided.get(id(dec), [])])
+            dec._r1_buf = p.full1[p.calls:].copy()
+            dec._r2_buf = p.full2[p.calls:].copy()
+            dec.calls += p.calls
+        return results
+
+
+class _Plan(NamedTuple):
+    """One decoder's part of attention_sequences: its calls, the warm-up
+    calls among them, and its ring buffers followed by each call's value
+    as attention stores them."""
+
+    decoder: StateSpaceAttentionDecoder
+    calls: int
+    warm: int
+    full1: np.ndarray
+    full2: np.ndarray
 
 
 def plot_aad_results(decision: np.ndarray,

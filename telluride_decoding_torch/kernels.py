@@ -117,8 +117,10 @@ def library() -> ctypes.CDLL:
         lib.tdt_fused_envelope_lagstack.argtypes = (
             [_VOID_P] * 4 + [_INT] * 4 + [ctypes.c_float, _VOID_P])
         lib.tdt_fused_envelope_lagstack.restype = _INT
-        lib.tdt_ssd_update.argtypes = [_VOID_P] * 5 + [_INT] * 4 + [_VOID_P]
+        lib.tdt_ssd_update.argtypes = [_VOID_P] * 6 + [_INT] * 5 + [_VOID_P]
         lib.tdt_ssd_update.restype = _INT
+        lib.tdt_ssd_sequence.argtypes = [_VOID_P] * 6 + [_INT] * 6 + [_VOID_P]
+        lib.tdt_ssd_sequence.restype = _INT
         lib.tdt_error_string.argtypes = [_INT]
         lib.tdt_error_string.restype = ctypes.c_char_p
         _lib = lib

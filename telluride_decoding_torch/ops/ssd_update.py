@@ -14,21 +14,27 @@ fixed (20 / 1 / 10 by default).
   * ssd_update_reference: plain torch, float32, fixed-trip Python loops.
     It takes any leading batch dimensions (independent updates), which
     the card checks use to replay many windows in one call.
-  * ssd_update: wrapper of kernel S1 (csrc/ssd_update.cu), which
-    replaces the jitted XLA program ``_ssd_update`` (not a Pallas
+  * ssd_update: the window form of kernel S1 (csrc/ssd_update.cu),
+    which replaces the jitted XLA program ``_ssd_update`` (not a Pallas
     kernel). For CUDA tensors it is one launch that updates the packed
-    state buffer in place; JAX's update is functional.
+    state buffer in place (JAX's update is functional), reading the
+    correlations from, and writing the decision to, pinned host memory
+    where the caller stages them there.
+  * ssd_sequence: the sequence form of S1, whole series of windows of
+    several streams in one launch (offline callers); its plain version
+    ssd_sequence_reference loops ssd_update_reference over the windows.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
 from telluride_decoding_torch import kernels
 
 MAX_WINDOW = 32         # k_w the kernel takes: one lane a window position.
+UNMAPPED = -1           # S1's code for a host buffer the card cannot reach.
 
 
 class SsdState(NamedTuple):
@@ -120,8 +126,10 @@ def ssd_update_reference(state: SsdState, r1: torch.Tensor,
     window's [..., k_w] smoothed states and variances. The new state is
     packed (state_views of a new buffer)."""
     kf = float(k_w)
+    # Constants may carry the state's batch axes (one set a stream).
     mu_0, alpha_0, beta_0 = consts.mu_0, consts.alpha_0, consts.beta_0
     lam, a_0, b_0 = consts.lambda_state, consts.a_0, consts.b_0
+    lam_k, a_0k, b_0k = lam[..., None], a_0[..., None], b_0[..., None]
     mu_d, rho_d = state.mu_d, state.rho_d
     z_kk, sig_kk, eta = state.z_kk, state.sig_kk, state.eta
     z = state.z_smooth
@@ -141,19 +149,19 @@ def ssd_update_reference(state: SsdState, r1: torch.Tensor,
 
         # M-step: MAP update of the log-normal parameters.
         mu0_new = (torch.sum(ep * log_r1 + (1.0 - ep) * log_r2, -1,
-                             keepdim=True) + kf * mu_0[0]) / (2.0 * kf)
+                             keepdim=True) + kf * mu_0[..., 0:1]) / (2.0 * kf)
         mu1_new = (torch.sum(ep * log_r2 + (1.0 - ep) * log_r1, -1,
-                             keepdim=True) + kf * mu_0[1]) / (2.0 * kf)
-        rho0_new = (2.0 * kf * alpha_0[0]) / (
+                             keepdim=True) + kf * mu_0[..., 1:2]) / (2.0 * kf)
+        rho0_new = (2.0 * kf * alpha_0[..., 0:1]) / (
             torch.sum(ep * (log_r1 - mu0_new) ** 2 +
                       (1.0 - ep) * (log_r2 - mu0_new) ** 2, -1,
                       keepdim=True) +
-            kf * (2.0 * beta_0[0] + (mu0_new - mu_0[0]) ** 2))
-        rho1_new = (2.0 * kf * alpha_0[1]) / (
+            kf * (2.0 * beta_0[..., 0:1] + (mu0_new - mu_0[..., 0:1]) ** 2))
+        rho1_new = (2.0 * kf * alpha_0[..., 1:2]) / (
             torch.sum(ep * (log_r2 - mu1_new) ** 2 +
                       (1.0 - ep) * (log_r1 - mu1_new) ** 2, -1,
                       keepdim=True) +
-            kf * (2.0 * beta_0[1] + (mu1_new - mu_0[1]) ** 2))
+            kf * (2.0 * beta_0[..., 1:2] + (mu1_new - mu_0[..., 1:2]) ** 2))
         mu_d = torch.cat([mu0_new, mu1_new], -1)
         rho_d = torch.cat([rho0_new, rho1_new], -1)
 
@@ -185,7 +193,7 @@ def ssd_update_reference(state: SsdState, r1: torch.Tensor,
             sig_pred = torch.stack(sig_pred, -1)
 
             # Backward smoother, in true reverse order.
-            sm = sig_kk[..., :-1] * lam / sig_pred
+            sm = sig_kk[..., :-1] * lam_k / sig_pred
             z_next, sig_next = z_kk[..., k_w], sig_kk[..., k_w]
             z_rev, sig_rev = [], []
             for k in range(k_w - 1, -1, -1):
@@ -203,8 +211,8 @@ def ssd_update_reference(state: SsdState, r1: torch.Tensor,
 
             eta = ((z_cap[..., 1:] - z_cap[..., :-1]) ** 2 +
                    sig_cap[..., 1:] + sig_cap[..., :-1] -
-                   2.0 * sig_cap[..., 1:] * sm + 2 * b_0) / (
-                       1 + 2 * (a_0 + 1))
+                   2.0 * sig_cap[..., 1:] * sm + 2 * b_0k) / (
+                       1 + 2 * (a_0k + 1))
         # The next outer E-step uses the smoothed state.
         z = z_cap[..., 1:]
 
@@ -214,52 +222,231 @@ def ssd_update_reference(state: SsdState, r1: torch.Tensor,
     return new_state, z, eta
 
 
+def _check_shape(what, k_w, outer_iter, inner_iter, newton_iter, at):
+    if not 1 <= k_w <= MAX_WINDOW:
+        raise ValueError('%s kernel takes 1 <= k_w <= %d, got %d.'
+                         % (what, MAX_WINDOW, k_w))
+    if min(outer_iter, inner_iter, newton_iter) < 0:
+        raise ValueError('%s: negative trip count.' % what)
+    if not -k_w <= at < k_w:
+        raise ValueError('%s: index %d outside a window of %d.'
+                         % (what, at, k_w))
+    return at % k_w
+
+
+def _check_buffer(what, t, shape, device):
+    """A contiguous float32 tensor of ``shape`` that the kernel reads or
+    writes in place: on ``device`` or in pinned host memory."""
+    if (t.shape != shape or t.dtype != torch.float32 or
+            not t.is_contiguous()):
+        raise ValueError('ssd_update kernel takes %s as a contiguous '
+                         'float32 %s tensor, got %s %s.'
+                         % (what, list(shape), tuple(t.shape), t.dtype))
+    if t.device != device and not (t.device.type == 'cpu' and
+                                   t.is_pinned()):
+        raise ValueError('ssd_update kernel takes %s on %s or in pinned '
+                         'host memory, got %s.' % (what, device, t.device))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def ssd_update(state: SsdState, r1: torch.Tensor, r2: torch.Tensor,
                consts: SsdConstants, outer_iter: int, inner_iter: int,
-               newton_iter: int, k_w: int, out=None):
-    """One window update: kernel S1 on CUDA, returns (state, z, eta).
+               newton_iter: int, k_w: int, out=None, *, decision=None,
+               at: int = -1):
+    """One window update: the window form of kernel S1 on CUDA; returns
+    (state, z, eta).
 
-    CPU tensors take ssd_update_reference (a new state). CUDA tensors
-    launch the kernel once, which rewrites the packed state buffer in
-    place (the state returned is the one given), or raise. r1 and r2 are
-    contiguous float32 [k_w] tensors, k_w at most 32. On CUDA z and eta
-    are the rows of one [2, k_w] tensor, ``out`` where it is given."""
-    if r1.device.type == 'cpu':
-        return ssd_update_reference(state, r1, r2, consts, outer_iter,
-                                    inner_iter, newton_iter, k_w)
-    if r1.device.type != 'cuda':
-        raise ValueError('ssd_update takes CPU or CUDA tensors, not %s.'
-                         % r1.device)
-    if not 1 <= k_w <= MAX_WINDOW:
-        raise ValueError('ssd_update kernel takes 1 <= k_w <= %d, got %d.'
-                         % (MAX_WINDOW, k_w))
-    if min(outer_iter, inner_iter, newton_iter) < 0:
-        raise ValueError('ssd_update: negative trip count.')
-    for name, r in (('r1', r1), ('r2', r2)):
-        if (r.shape != (k_w,) or r.dtype != torch.float32 or
-                not r.is_contiguous() or r.device != r1.device):
-            raise ValueError('ssd_update kernel takes %s as a contiguous '
-                             'float32 [%d] tensor on %s, got %s %s.'
-                             % (name, k_w, r1.device, tuple(r.shape),
-                                r.dtype))
-    state_buf = packed_buffer(state, _state_sizes(k_w))
-    const_buf = packed_buffer(consts, _CONSTANT_SIZES)
-    if state_buf.device != r1.device or const_buf.device != r1.device:
-        raise ValueError('ssd_update: state, constants and r must share '
-                         'one device.')
+    A state on the CPU takes ssd_update_reference (a new state). A state
+    on the card launches the kernel once, which rewrites the packed
+    state buffer in place (the state returned is the one given), or
+    raises. r1 and r2 are contiguous float32 [k_w] tensors, k_w at most
+    32, on the state's card or in pinned host memory, which the kernel
+    reads through its device address. z and eta are the rows of ``out``
+    ([2, k_w]; a new tensor on the card unless only ``decision`` is
+    asked for, then None). ``decision`` ([2], on the card or pinned)
+    receives z and eta at window position ``at``: with pinned buffers a
+    window is one launch and no copy."""
+    if state.mu_d.device.type == 'cpu':
+        new_state, z, eta = ssd_update_reference(
+            state, r1, r2, consts, outer_iter, inner_iter, newton_iter, k_w)
+        if out is not None:
+            out.copy_(torch.stack([z, eta]))
+        if decision is not None:
+            decision.copy_(torch.stack([z[at], eta[at]]))
+        return new_state, z, eta
+    if out is None and decision is None:
+        out = torch.empty((2, k_w), dtype=torch.float32,
+                          device=state.mu_d.device)
+    WindowLauncher(state, r1, r2, consts, outer_iter, inner_iter,
+                   newton_iter, k_w, out=out, decision=decision, at=at)()
     if out is None:
-        out = torch.empty((2, k_w), dtype=torch.float32, device=r1.device)
-    elif (out.shape != (2, k_w) or out.dtype != torch.float32 or
-          not out.is_contiguous() or out.device != r1.device):
-        raise ValueError('ssd_update: out must be a contiguous float32 '
-                         '[2, %d] tensor on %s.' % (k_w, r1.device))
-    lib = kernels.library()
-    kernels.check(lib.tdt_ssd_update(
-        state_buf.data_ptr(), r1.data_ptr(), r2.data_ptr(),
-        const_buf.data_ptr(), out.data_ptr(), k_w, outer_iter, inner_iter,
-        newton_iter, kernels.stream_handle(r1.device)), 'ssd_update')
-    ssd_update.launches += 1
+        return state, None, None
     return state, out[0], out[1]
 
 
+class WindowLauncher:
+    """S1's window form bound to fixed buffers (the arguments of
+    ssd_update, the state on the card): checked once, then each call is
+    one launch on the current stream and adds one to ssd_update.launches.
+    The serving decoder keeps one, so that a window costs the launch and
+    not the checks."""
+
+    def __init__(self, state: SsdState, r1: torch.Tensor, r2: torch.Tensor,
+                 consts: SsdConstants, outer_iter: int, inner_iter: int,
+                 newton_iter: int, k_w: int, *, out=None, decision=None,
+                 at: int = -1):
+        device = state.mu_d.device
+        if device.type != 'cuda':
+            raise ValueError('S1 launches on CUDA tensors, not %s.'
+                             % device)
+        at = _check_shape('ssd_update', k_w, outer_iter, inner_iter,
+                          newton_iter, at)
+        for name, r in (('r1', r1), ('r2', r2)):
+            _check_buffer(name, r, (k_w,), device)
+        state_buf = packed_buffer(state, _state_sizes(k_w))
+        const_buf = packed_buffer(consts, _CONSTANT_SIZES)
+        if const_buf.device != device:
+            raise ValueError('ssd_update: state and constants must share '
+                             'one device.')
+        if out is not None:
+            _check_buffer('out', out, (2, k_w), device)
+        if decision is not None:
+            _check_buffer('decision', decision, (2,), device)
+        self.device = device
+        # The tensors stay referenced: the kernel reads their addresses.
+        self._buffers = (state_buf, r1, r2, const_buf, out, decision)
+        self._args = (state_buf.data_ptr(), r1.data_ptr(), r2.data_ptr(),
+                      const_buf.data_ptr(), _ptr(out), _ptr(decision), at,
+                      k_w, outer_iter, inner_iter, newton_iter)
+        self._launch = kernels.library().tdt_ssd_update
+
+    def __call__(self):
+        code = self._launch(*self._args, kernels.stream_handle(self.device))
+        if code == UNMAPPED:
+            raise ValueError('ssd_update: a pinned host buffer is not '
+                             'mapped into the card\'s address space.')
+        kernels.check(code, 'ssd_update')
+        ssd_update.launches += 1
+
+
 ssd_update.launches = 0
+
+
+def _segments(offsets, k_w) -> List[int]:
+    """The CSR offsets as ints, checked: from 0, each stream's series at
+    least k_w - 1 long (its ring buffer before the first window)."""
+    offsets = [int(o) for o in torch.as_tensor(offsets).tolist()]
+    if len(offsets) < 2 or offsets[0] != 0:
+        raise ValueError('ssd_sequence: offsets start at 0 and name at '
+                         'least one stream, got %s.' % offsets[:4])
+    for lo, hi in zip(offsets, offsets[1:]):
+        if hi - lo < k_w - 1:
+            raise ValueError('ssd_sequence: a series of %d values is '
+                             'shorter than a ring buffer (%d).'
+                             % (hi - lo, k_w - 1))
+    return offsets
+
+
+def sequence_windows(offsets: Sequence[int], k_w: int) -> List[int]:
+    """Windows of each stream of a CSR series: its length less k_w - 1."""
+    return [int(hi - lo) - (k_w - 1) for lo, hi in zip(offsets, offsets[1:])]
+
+
+def stack_streams(states: Sequence[SsdState],
+                  constants: Sequence[SsdConstants]):
+    """Several streams' states and constants packed and stacked as
+    ssd_sequence takes them: ([S, 6 + 4 k_w], [S, 9]), new tensors."""
+    return (torch.stack([pack(list(state)) for state in states]),
+            torch.stack([pack(list(consts)) for consts in constants]))
+
+
+@torch.no_grad()
+def ssd_sequence_reference(states: torch.Tensor, consts: torch.Tensor,
+                           r1_series: torch.Tensor, r2_series: torch.Tensor,
+                           offsets, outer_iter: int, inner_iter: int,
+                           newton_iter: int, k_w: int, at: int = -1):
+    """Plain version of ssd_sequence: ssd_update_reference window after
+    window, each call on the streams that still have a window (batched
+    over them). Returns (new states, out) as ssd_sequence does."""
+    offsets = _segments(offsets, k_w)
+    windows = sequence_windows(offsets, k_w)
+    first = [lo - b * (k_w - 1) for b, lo in enumerate(offsets[:-1])]
+    states = states.clone()
+    out = torch.empty((sum(windows), 2), dtype=torch.float32,
+                      device=states.device)
+    for j in range(max(windows)):
+        active = [b for b, n in enumerate(windows) if n > j]
+        rows = torch.tensor(active, device=states.device)
+        r1 = torch.stack([r1_series[offsets[b] + j:offsets[b] + j + k_w]
+                          for b in active])
+        r2 = torch.stack([r2_series[offsets[b] + j:offsets[b] + j + k_w]
+                          for b in active])
+        new_state, z, eta = ssd_update_reference(
+            state_views(states[rows], k_w), r1, r2,
+            constants_views(consts[rows]), outer_iter, inner_iter,
+            newton_iter, k_w)
+        states[rows] = pack(list(new_state))
+        out[torch.tensor([first[b] + j for b in active],
+                         device=states.device)] = torch.stack(
+            [z[:, at], eta[:, at]], 1)
+    return states, out
+
+
+def ssd_sequence(states: torch.Tensor, consts: torch.Tensor,
+                 r1_series: torch.Tensor, r2_series: torch.Tensor,
+                 offsets, outer_iter: int, inner_iter: int,
+                 newton_iter: int, k_w: int, at: int = -1):
+    """Series of window updates of several streams: the sequence form of
+    kernel S1 on CUDA, one launch for all streams.
+
+    ``states`` [S, 6 + 4 k_w] holds each stream's packed state and
+    ``consts`` [S, 9] its packed constants. Stream b's correlations are
+    ``r*_series[offsets[b]:offsets[b + 1]]`` (CSR, ``offsets`` a host
+    sequence of S + 1 ints from 0): its ring buffer at its first window,
+    then one new value a window, so it has offsets[b + 1] - offsets[b] -
+    (k_w - 1) windows. Returns (states, out): ``out`` [windows, 2] holds
+    z and eta at window position ``at`` of every window, stream after
+    stream. CPU tensors take ssd_sequence_reference (new states); CUDA
+    tensors launch the kernel once, which rewrites ``states`` in place,
+    and give bit for bit what successive ssd_update launches give, or
+    raise."""
+    if states.device.type == 'cpu':
+        return ssd_sequence_reference(states, consts, r1_series, r2_series,
+                                      offsets, outer_iter, inner_iter,
+                                      newton_iter, k_w, at)
+    device = states.device
+    if device.type != 'cuda':
+        raise ValueError('ssd_sequence takes CPU or CUDA tensors, not %s.'
+                         % device)
+    at = _check_shape('ssd_sequence', k_w, outer_iter, inner_iter,
+                      newton_iter, at)
+    offsets = _segments(offsets, k_w)
+    streams = len(offsets) - 1
+    for name, t, shape in (('states', states, (streams, 6 + 4 * k_w)),
+                           ('consts', consts, (streams, 9)),
+                           ('r1_series', r1_series, (offsets[-1],)),
+                           ('r2_series', r2_series, (offsets[-1],))):
+        if (t.shape != shape or t.dtype != torch.float32 or
+                not t.is_contiguous() or t.device != device):
+            raise ValueError('ssd_sequence kernel takes %s as a contiguous '
+                             'float32 %s tensor on %s, got %s %s on %s.'
+                             % (name, list(shape), device, tuple(t.shape),
+                                t.dtype, t.device))
+    out = torch.empty((offsets[-1] - streams * (k_w - 1), 2),
+                      dtype=torch.float32, device=device)
+    offsets_dev = torch.tensor(offsets, dtype=torch.int64).to(device)
+    lib = kernels.library()
+    kernels.check(lib.tdt_ssd_sequence(
+        states.data_ptr(), consts.data_ptr(), r1_series.data_ptr(),
+        r2_series.data_ptr(), offsets_dev.data_ptr(), out.data_ptr(),
+        streams, at, k_w, outer_iter, inner_iter, newton_iter,
+        kernels.stream_handle(device)), 'ssd_sequence')
+    ssd_sequence.launches += 1
+    return states, out
+
+
+ssd_sequence.launches = 0
+

@@ -15,7 +15,8 @@ JAX suite's bound for its kernel (float32 window sums in another order).
 The SSD update (S1): atol 1e-4 on z, eta and the new state, against the
 plain version on the card from the same state (every operation rounded
 alike; only the four window sums run in another order, and twenty EM
-rounds of Newton steps amplify that).
+rounds of Newton steps amplify that). S1's sequence form against its
+window form: bit for bit (the same device function on the same inputs).
 """
 
 import numpy as np
@@ -517,6 +518,185 @@ def test_ssd_decoder_on_card_matches_cpu(cuda):
     assert ssd_update.ssd_update.launches - before == 50 - card.k_w + 1
     want = np.array([cpu.attention(a, b) for a, b in zip(r1, r2)])
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def _ssd_series(cuda, k_w, length, seed):
+    """A seeded stream for S1's sequence form: (the packed initial state,
+    the packed constants, r1, r2), the series on the card."""
+    rng = np.random.RandomState(seed)
+    a_0 = 2 + 0.2 ** 2 / 5
+    consts = torch.tensor([-0.3994 + 0.1 * rng.randn(), -1.5103, 641.13,
+                           4043.4, 375.81, 6279.1, a_0, 0.2 * (a_0 - 1),
+                           1.0], device=cuda)
+    state = torch.cat([
+        torch.tensor([-0.3994, -1.5103, 1.7060, 0.64395]),
+        torch.tensor(0.5 * rng.randn(2 * (k_w + 1)), dtype=torch.float32),
+        torch.full((k_w,), 0.3), torch.zeros(k_w)]).to(cuda)
+    state[4 + k_w + 1:4 + 2 * (k_w + 1)].abs_().add_(0.1)   # sig_kk > 0
+    att = (np.arange(length) // 20) % 2 == 0
+    r_att = np.exp(-0.4 + 0.6 * rng.randn(length))
+    r_un = np.exp(-1.5 + 0.9 * rng.randn(length))
+    r1 = torch.as_tensor(np.where(att, r_att, r_un), dtype=torch.float32,
+                         device=cuda)
+    r2 = torch.as_tensor(np.where(att, r_un, r_att), dtype=torch.float32,
+                         device=cuda)
+    return state, consts, r1, r2
+
+
+def _window_launches(state, consts, r1, r2, k_w, trips, at=-1):
+    """The series through successive window-form launches; returns the
+    (z, eta) at ``at`` of each window and leaves ``state`` updated."""
+    views = ssd_update.state_views(state, k_w)
+    const_views = ssd_update.constants_views(consts)
+    got = []
+    for j in range(r1.numel() - k_w + 1):
+        _, z, eta = ssd_update.ssd_update(
+            views, r1[j:j + k_w].contiguous(), r2[j:j + k_w].contiguous(),
+            const_views, *trips, k_w)
+        got.append(torch.stack([z[at], eta[at]]))
+    return torch.stack(got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k_w,trips,windows', [
+    (14, (20, 1, 10), 30), (1, (20, 1, 10), 12), (32, (20, 1, 10), 10),
+    (5, (3, 2, 4), 9)])
+def test_ssd_sequence_equals_window_launches(cuda, k_w, trips, windows):
+    """The sequence form gives bit for bit the window form's z, eta and
+    final state (k_w 14 at 20 / 1 / 10: the factory's shape; k_w 1 and 32
+    the extremes a warp takes)."""
+    state, consts, r1, r2 = _ssd_series(cuda, k_w, windows + k_w - 1, 1)
+    by_window = state.clone()
+    want = _window_launches(by_window, consts, r1, r2, k_w, trips)
+    before = ssd_update.ssd_sequence.launches
+    states, got = ssd_update.ssd_sequence(
+        state[None].clone(), consts[None].clone(), r1, r2,
+        [0, r1.numel()], *trips, k_w)
+    torch.cuda.synchronize()
+    assert ssd_update.ssd_sequence.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+    assert torch.equal(states[0], by_window)
+
+
+@pytest.mark.cuda
+def test_ssd_sequence_streams_of_unequal_length(cuda):
+    """Streams of unequal length and constants in one launch each equal
+    their own launch, bit for bit."""
+    k_w, trips = 14, (20, 1, 10)
+    streams = [_ssd_series(cuda, k_w, k_w - 1 + n, seed)
+               for seed, n in enumerate((17, 1, 40, 5))]
+    offsets = np.cumsum([0] + [s[2].numel() for s in streams])
+    states, got = ssd_update.ssd_sequence(
+        torch.stack([s[0] for s in streams]),
+        torch.stack([s[1] for s in streams]),
+        torch.cat([s[2] for s in streams]),
+        torch.cat([s[3] for s in streams]), offsets, *trips, k_w)
+    at = 0
+    for b, (state, consts, r1, r2) in enumerate(streams):
+        alone_states, alone = ssd_update.ssd_sequence(
+            state[None].clone(), consts[None], r1, r2, [0, r1.numel()],
+            *trips, k_w)
+        n = alone.shape[0]
+        assert torch.equal(got[at:at + n], alone)
+        assert torch.equal(states[b], alone_states[0])
+        at += n
+    assert at == got.shape[0]
+
+
+@pytest.mark.cuda
+def test_ssd_sequence_matches_plain(cuda):
+    """The sequence form against ssd_sequence_reference on the card from
+    the same states: two streams of unequal length."""
+    k_w, trips = 14, (20, 1, 10)
+    streams = [_ssd_series(cuda, k_w, k_w - 1 + n, 7 + n) for n in (3, 2)]
+    args = (torch.cat([s[2] for s in streams]),
+            torch.cat([s[3] for s in streams]),
+            [0, k_w + 2, 2 * k_w + 3])
+    states = torch.stack([s[0] for s in streams])
+    consts = torch.stack([s[1] for s in streams])
+    want_states, want = ssd_update.ssd_sequence_reference(
+        states, consts, *args, *trips, k_w)
+    got_states, got = ssd_update.ssd_sequence(states.clone(), consts, *args,
+                                              *trips, k_w)
+    torch.testing.assert_close(got, want, **SSD_TOL)
+    torch.testing.assert_close(got_states, want_states, **SSD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k_w', [14, 3])
+def test_ssd_update_zero_copy_matches_device_buffers(cuda, k_w):
+    """The window form reading r1 and r2 from pinned host memory and
+    writing the decision and the rows there gives the bits that buffers
+    on the card give, within SSD_TOL of the plain version."""
+    state, consts, r1, r2 = _ssd_series(cuda, k_w, k_w, 3)
+    const_views = ssd_update.constants_views(consts)
+    before = state.clone()
+    _, z, eta = ssd_update.ssd_update(ssd_update.state_views(state, k_w), r1,
+                                      r2, const_views, 20, 1, 10, k_w)
+    pinned = torch.empty((2, k_w), pin_memory=True)
+    pinned.copy_(torch.stack([r1, r2]))
+    rows = torch.empty((2, k_w), pin_memory=True)
+    decision = torch.empty((2,), pin_memory=True)
+    zero_copy = before.clone()
+    ssd_update.ssd_update(ssd_update.state_views(zero_copy, k_w), pinned[0],
+                          pinned[1], const_views, 20, 1, 10, k_w, out=rows,
+                          decision=decision, at=-2)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, torch.stack([z, eta]).cpu())
+    assert torch.equal(decision, torch.stack([z[-2], eta[-2]]).cpu())
+    assert torch.equal(zero_copy, state)
+    _, want_z, want_eta = ssd_update.ssd_update_reference(
+        ssd_update.state_views(before, k_w), r1, r2, const_views, 20, 1, 10,
+        k_w)
+    torch.testing.assert_close(rows, torch.stack([want_z, want_eta]).cpu(),
+                               **SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_update_refuses_pageable_host_memory(cuda):
+    k_w = 4
+    state, consts, r1, r2 = _ssd_series(cuda, k_w, k_w, 0)
+    with pytest.raises(ValueError, match='pinned'):
+        ssd_update.ssd_update(ssd_update.state_views(state, k_w), r1.cpu(),
+                              r2, ssd_update.constants_views(consts), 20, 1,
+                              10, k_w)
+
+
+@pytest.mark.cuda
+def test_attention_sequences_on_card_match_successive_calls(cuda):
+    """Three decoders' streams in one sequence launch give what their
+    successive attention calls give on the card, bit for bit, and leave
+    the decoders alike; a following attention call carries on."""
+    from telluride_decoding_torch.decide import attention_decoder
+    rng = np.random.RandomState(9)
+    lengths = (40, 10, 25)
+    r1s = [np.exp(-0.4 + 0.6 * rng.randn(n)) for n in lengths]
+    r2s = [np.exp(-1.5 + 0.9 * rng.randn(n)) for n in lengths]
+
+    def decoders():
+        decs = [attention_decoder.create_attention_decoder('ssd', device=cuda)
+                for _ in lengths]
+        for dec, r1, r2 in zip(decs, r1s, r2s):
+            dec.tune(r1[:8], r2[:8])
+        return decs
+    by_call, by_sequence = decoders(), decoders()
+    want = [[dec.attention(a, b) for a, b in zip(r1, r2)]
+            for dec, r1, r2 in zip(by_call, r1s, r2s)]
+    windows = ssd_update.ssd_update.launches
+    sequences = ssd_update.ssd_sequence.launches
+    got = attention_decoder.StateSpaceAttentionDecoder.attention_sequences(
+        by_sequence, r1s, r2s)
+    assert ssd_update.ssd_update.launches == windows
+    assert ssd_update.ssd_sequence.launches == sequences + 1
+    assert got == want
+    for a, b in zip(by_call, by_sequence):
+        assert (a.calls, a.z_dyn, a.eta_dyn) == (b.calls, b.z_dyn, b.eta_dyn)
+        assert np.array_equal(a._r1_buf, b._r1_buf)
+        assert np.array_equal(a._r2_buf, b._r2_buf)
+        assert torch.equal(ssd_update.pack(list(a._state)),
+                           ssd_update.pack(list(b._state)))
+        assert a.attention(0.3, 0.2) == b.attention(0.3, 0.2)
 
 
 @pytest.mark.cuda

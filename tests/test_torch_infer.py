@@ -103,6 +103,30 @@ def test_ssd_sweep_matches_jax(setup):
         assert abs(got[size] - want[size]) <= 1.0 / windows + 1e-12
 
 
+def test_ssd_sweep_decides_every_size_in_one_sequence(setup, monkeypatch):
+    """For ssd the sweep hands every window size's decoder to one
+    attention_sequences call of the state-space decoder (one S1 sequence
+    launch on the card) and decides no window alone; wta never calls
+    it."""
+    from telluride_decoding_torch.decide import attention_decoder as ad
+    calls = []
+    real = ad.StateSpaceAttentionDecoder.attention_sequences
+
+    def spy(cls, decoders, r1s, r2s):
+        calls.append([dec.k_w for dec in decoders])
+        return real(decoders, r1s, r2s)
+
+    def alone(self, r1, r2):
+        raise AssertionError('a window decided on its own')
+    monkeypatch.setattr(ad.StateSpaceAttentionDecoder, 'attention_sequences',
+                        classmethod(spy))
+    monkeypatch.setattr(ad.StateSpaceAttentionDecoder, 'attention', alone)
+    sweep(infer, setup, 'lda', 'ssd', [400, 1000])
+    assert calls == [[14, 14]]
+    sweep(infer, setup, 'lda', 'wta', [400, 1000])
+    assert len(calls) == 1
+
+
 def test_csv_is_byte_identical(setup, tmp_path):
     paths = [str(tmp_path / name) for name in ('port.csv', 'jax.csv')]
     for module, path in zip((infer, jax_infer), paths):
