@@ -52,7 +52,22 @@ drives the two main paths once:
   its sequence form deciding all six window sizes) -> the codelab
   stream served with ``--serve_decoder ssd`` (S1's window form once a
   window), synchronous and pipelined -> one TCP session of
-  ``serve_socket`` -> ``--selftest``.
+  ``serve_socket`` -> ``--selftest``;
+
+  raw-recording ingest: a lab's own seeded recordings (8 trials of 6
+  minutes: stereo wavs at 44.1 kHz with trigger pulses added by
+  ``cli.add_trigger.main``, EDF of 64 EEG channels and a TRIG channel at
+  512 Hz starting a planted lead before the audio, a BrainVision copy of
+  one trial) -> the ingest API (EdfBrainDataFile, trigger onsets, the
+  lead by mode histogram and Theil-Sen, fix_eeg_offset, intensity by
+  K3, EEG resampled to 64 Hz, z-score, TFRecords) -> ``cli.decoding.main``
+  (CCA at the KULeuven preset's contexts: streamed fit, K2) -> the
+  decoder's frame scores over the test trial (K1); then a seeded
+  Telluride2015.mat and one jens_impaired subject (a ds-eeg-snhl.tar of
+  a 24-bit BDF, the events TSV and the stimuli features) through
+  ``cli.regression_data.main --internet file://...`` (download, untar,
+  ingest) -> ``cli.regression.main`` (telluride4_linear,
+  telluride4_cca, jens_impaired_linear; K2).
 
 Decisions must track the planted switch, served scores must match a
 CPU decode of the same stream with the plain versions, the decoding
@@ -69,7 +84,12 @@ share); both serving modes and the TCP session must give the same
 decisions; S1's window form must match its plain version on the card
 over the test file's windows, and its sequence form the window form bit
 for bit over an ssd pair's six streams and the plain version over their
-first windows.
+first windows. The raw ingest's planted leads must be recovered within
+one EEG sample by both estimators, its BrainVision copy must read within
+one EDF quantum of the EDF, its records on the card within INGEST_TOL of
+the same ingest on the CPU, the lab experiment's d' above 1 and each
+corpus sweep's best mean r at or above its planted matched filter's less
+SWEEP_MARGIN.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -92,6 +112,8 @@ import sys
 import time
 
 import numpy as np
+
+from tools import raw_recordings
 
 IN1_CHANNELS, PRE, POST = 69, 0, 36            # 69 x 37 = 2553 columns.
 IN2_PRE, IN2_POST = 15, 15                     # 1 x 31 columns.
@@ -974,16 +996,6 @@ def phase_slice(torch, device, smi):
     return launches
 
 
-def _slow_envelope(rng, n, fs):
-    """A positive envelope with knots every quarter second."""
-    step = max(1, int(fs // 4))
-    raw = 0.3 + np.abs(rng.randn(n // step + 2))
-    idx = np.arange(n) / step
-    lo = idx.astype(int)
-    frac = idx - lo
-    return (1 - frac) * raw[lo] + frac * raw[lo + 1]
-
-
 def build_kuleuven_cache(cache_dir, seed=5, channels=64, eeg_fs=128,
                          audio_fs=44100, seconds=360, trials=8, tracks=4,
                          **_):
@@ -1004,7 +1016,7 @@ def build_kuleuven_cache(cache_dir, seed=5, channels=64, eeg_fs=128,
              for k in range(tracks)]
     envelopes = []
     for name in names:
-        env = _slow_envelope(rng, n_eeg, eeg_fs)
+        env = raw_recordings.slow_envelope(rng, n_eeg, eeg_fs)
         envelopes.append(env)
         audio_env = np.interp(np.arange(n_audio) / audio_fs,
                               np.arange(n_eeg) / eeg_fs, env)
@@ -1222,29 +1234,34 @@ def decoding_corpus(data_dir, files=DECODING_FILES, frames=TRAIN_FRAMES,
     return 'trial_%02d' % (files - 1)
 
 
-def run_decoding(kind, data_dir, work_dir, device, test_file):
-    """One run of ``cli.decoding.main`` at codelab width (CCA with the
-    streamed fit, or the dense linear fit); returns (results.txt as
-    {name: value}, the StageTimer's report, seconds, model dir)."""
+def run_decoding(kind, data_dir, work_dir, device, test_file,
+                 contexts=(PRE, POST, IN2_PRE, IN2_POST), dims=CCA_DIMS,
+                 frame_rate=100):
+    """One run of ``cli.decoding.main``, at codelab width unless told
+    otherwise (CCA with the streamed fit, or the dense linear fit);
+    returns (results.txt as {name: value}, the StageTimer's report,
+    seconds, model dir)."""
     import io
     from telluride_decoding_torch.cli import decoding
+    pre, post, pre2, post2 = contexts
     summary_dir = os.path.join(work_dir, kind + '_summary')
     model_dir = os.path.join(work_dir, kind + '_model')
     for d in (summary_dir, model_dir):
         shutil.rmtree(d, ignore_errors=True)
     argv = ['--tfexample_dir', data_dir, '--input_field', 'eeg',
             '--output_field', 'intensity', '--attended_field=',
-            '--pre_context', str(PRE), '--post_context', str(POST),
+            '--pre_context', str(pre), '--post_context', str(post),
             '--train_file_pattern', 'allbut',
             '--validate_file_pattern', test_file,
             '--test_file_pattern', test_file, '--correlation_frames', '100',
             '--regularization_lambda', '0.001', '--summary_dir',
             summary_dir, '--saved_model_dir', model_dir, '--device',
-            str(device), '--dnn_regressor', kind]
+            str(device), '--dnn_regressor', kind, '--frame_rate',
+            str(frame_rate)]
     if kind == 'cca':
         argv += ['--input2_field', 'intensity', '--input2_pre_context',
-                 str(IN2_PRE), '--input2_post_context', str(IN2_POST),
-                 '--cca_dimensions', str(CCA_DIMS), '--streaming_fit']
+                 str(pre2), '--input2_post_context', str(post2),
+                 '--cca_dimensions', str(dims), '--streaming_fit']
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -1492,13 +1509,9 @@ def sweep_corpus(data_dir, short_dir, seed=9):
         records.convert_data_to_tfrecords(
             {'eeg': eeg, 'intensity': a1, 'intensity2': a2},
             os.path.join(short_dir, 'trial_%02d.tfrecords' % i))
-    rs = []
-    for eeg, a1, _ in train:
-        pred = np.zeros(eeg.shape[0])
-        for k in range(trf.shape[1]):
-            pred[:eeg.shape[0] - k] += eeg[k:] @ trf[:, k]
-        rs.append(np.corrcoef(pred, a1[:, 0])[0, 1])
-    return float(np.mean(rs))
+    return float(np.mean([raw_recordings.matched_filter_r(eeg, a1[:, 0],
+                                                          trf)
+                          for eeg, a1, _ in train]))
 
 
 def run_regression(torch, test_name, data_dir, work_dir, device, post,
@@ -2769,6 +2782,403 @@ def phase_attention(torch, device, smi):
     return launches, s1
 
 
+# Phase 12: ingest of raw recordings. A lab's own recordings (one subject
+# of LAB['trials'] trials: EDF of 64 EEG channels and TRIG at 512 Hz,
+# stereo int16 wavs at 44.1 kHz with add_trigger's pulses, one event per
+# 5 s) and two corpora through the downloader over file:// URLs:
+# Telluride4 (an assumed shape: the repo does not record the corpus's
+# channel count or trial length) and one jens_impaired subject at
+# ds-eeg-snhl's documented geometry (BDF, 64 channels at 512 Hz, 48
+# trials of 50 s, 32 of them with a masker; one subject of 44).
+LAB = dict(trials=8, seconds=360, channels=64, eeg_fs=512, audio_fs=44100,
+           frame_rate=64, event_every=5, lead_samples=(128, 1024))
+LAB_CONTEXTS, LAB_DIMS = (0, 21, 15, 15), 5     # The KULeuven CCA preset's.
+TELLURIDE4 = dict(trials=32, tracks=4, channels=64, frames=3840)
+IMPAIRED = dict(channels=64, fs=512, trials=48, dual=32, frames=25600)
+
+
+def check_leads(leads, planted, onsets, eeg_fs):
+    """Both estimates within one EEG sample of the planted lead, no
+    outlier, and every audio onset found in both channels."""
+    for name, (mode, theil_sen, outliers, n_audio, n_eeg) in leads.items():
+        for what, value in (('mode histogram', mode),
+                            ('Theil-Sen', theil_sen)):
+            if abs(value - planted[name]) > 1.0 / eeg_fs:
+                raise AssertionError(
+                    '%s: the %s lead %.6f s is more than one EEG sample '
+                    'from the planted %.6f s' % (name, what, value,
+                                                 planted[name]))
+        if outliers or not n_audio == n_eeg == len(onsets[name]):
+            raise AssertionError('%s: %d outliers, %d audio and %d EEG '
+                                 'onsets of %d' % (name, outliers, n_audio,
+                                                   n_eeg, len(onsets[name])))
+
+
+def check_brainvision(eeg_dir, name='trial_01'):
+    """The BrainVision copy against the EDF read; raises unless it is
+    within one EDF quantum. Returns the largest difference in quanta."""
+    worst = raw_recordings.brainvision_quanta(eeg_dir, name)
+    if worst > 1.0:
+        raise AssertionError('the BrainVision copy differs from the EDF '
+                             'read by %.3f quanta' % worst)
+    return worst
+
+
+@contextlib.contextmanager
+def timed_calls(seconds, *targets):
+    """Adds the seconds of every call of each (owner, name) in
+    ``targets`` to seconds[name] for the block."""
+    saved = [(owner, name, getattr(owner, name)) for owner, name in targets]
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[name] = (seconds.get(name, 0.0) +
+                                 time.perf_counter() - t0)
+        return call
+    for owner, name, fn in saved:
+        setattr(owner, name, timed(name, fn))
+    try:
+        yield seconds
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def corpus_main(type_, url, cache_dir, tf_dir, device, data_class):
+    """``cli.regression_data.main`` with ``--internet url``; returns its
+    seconds split by stage: the download (download_from_gdrive), the rest
+    of download_data (extraction), the .mat loads, the BDF read, the
+    events TSV, z-score, TFRecord write and ingest_data in all."""
+    from telluride_decoding_torch.cli import regression_data as rd
+    from telluride_decoding_torch.io import ingest
+    for d in (cache_dir, tf_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    seconds = collections.OrderedDict()
+    t0 = time.perf_counter()
+    with timed_calls(seconds, (rd, 'download_from_gdrive'),
+                     (data_class, 'download_data'), (rd, 'loadmat'),
+                     (rd.edf_io, 'read_edf'), (rd, '_read_events'),
+                     (ingest.BrainExperiment, 'z_score_all_data'),
+                     (ingest.BrainExperiment, 'write_all_data'),
+                     (data_class, 'ingest_data')), \
+            contextlib.redirect_stdout(sys.stderr):
+        rc = rd.main(['--type', type_, '--internet', url, '--cache_dir',
+                      cache_dir, '--tf_output_dir', tf_dir, '--device',
+                      str(device)])
+    seconds['main'] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError('regression_data.main --type %s returned %d'
+                             % (type_, rc))
+    seconds['extract'] = (seconds.pop('download_data') -
+                          seconds['download_from_gdrive'])
+    return seconds
+
+
+def tree_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def fmt_stages(stages):
+    return ', '.join('%s %.3f s' % item for item in stages.items())
+
+
+def sweep_gate(run, test_name, threshold, matched_r, files):
+    best = float(np.max(np.mean(run['grid'], axis=1)))
+    if run['grid'].shape != (SWEEP_LAMBDAS.size, files):
+        raise AssertionError('%s: grid shape %s' % (test_name,
+                                                    run['grid'].shape))
+    if not best >= threshold:
+        raise AssertionError('%s: best mean held-out r %.4f is below %.4f '
+                             '(the matched filter %.4f less %g)'
+                             % (test_name, best, threshold, matched_r,
+                                SWEEP_MARGIN))
+    return best
+
+
+def lab_frame_scores(model_dir, data_dir, device, test_file, rate,
+                     contexts=LAB_CONTEXTS):
+    """The saved lab decoder's frame scores over the test split
+    (``Decoder.frame_scores``: one K1 launch over the split on a card);
+    returns the scores."""
+    from telluride_decoding_torch.decode.infer_decoder import create_decoder
+    decoder = create_decoder(model_dir, reduction='lda', device=device)
+    decoder.load_decoding_model(model_dir)
+    decoder.restore_parameters(os.path.join(model_dir, 'decoder_model.json'))
+    dataset = brain_data(data_dir, device, 'intensity', rate, contexts,
+                         test_file_pattern=test_file, final_batch_size=512,
+                         shuffle_buffer_size=0).create_dataset('test')
+    scores, _ = decoder.frame_scores(dataset)
+    if not scores.size or not np.all(np.isfinite(scores)):
+        raise AssertionError('the lab decoder scored %d frames, finite: %s'
+                             % (scores.size, np.all(np.isfinite(scores))))
+    return scores
+
+
+def record_lag_stacks():
+    """Starts counting the (n, c, pre, post) of every K2 launch: the
+    kernel library that the wrapper fetches at each call is wrapped.
+    Returns (the counts, a function that stops the counting)."""
+    from telluride_decoding_torch import kernels
+    real = kernels.library
+    shapes = collections.Counter()
+
+    class Recording:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            return getattr(self._lib, name)
+
+        def tdt_lag_stack_f32(self, x, out, n, c, pre, post, stream):
+            shapes[(n, c, pre, post)] += 1
+            return self._lib.tdt_lag_stack_f32(x, out, n, c, pre, post,
+                                               stream)
+    kernels.library = lambda: Recording(real())
+
+    def stop():
+        kernels.library = real
+    return shapes, stop
+
+
+def check_lag_stack_shapes(torch, device, shapes, seed=12):
+    """K2 against lag_stack_reference, bit for bit, on random inputs at
+    each (n, c, pre, post) in ``shapes``."""
+    from telluride_decoding_torch.ops.lagstack import (lag_stack,
+                                                       lag_stack_reference)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for n, c, pre, post in sorted(shapes):
+        x = torch.randn((n, c), generator=gen, device=device)
+        if not torch.equal(lag_stack(x, pre, post),
+                           lag_stack_reference(x, pre, post)):
+            raise AssertionError('lag_stack kernel is not bit-exact at %s'
+                                 % ((n, c, pre, post),))
+
+
+def bounded_moments_check(torch, test_name, data_dir, post, device):
+    """A sweep's per-file moments in the bounded-memory regime (one file
+    uploaded and stacked by K2 at a time) on the card against the same
+    regime on the CPU (lag_stack_reference), over the preset's own files
+    and context; raises unless every moment is within SWEEP_TOL of the
+    largest of its kind. Returns (largest relative difference, files,
+    seconds on the card, seconds on the CPU)."""
+    from telluride_decoding_torch.cli import decoding, regression
+    from telluride_decoding_torch.sweep import engine
+    args = regression.build_parser().parse_args(
+        ['--tfexample_dir', data_dir, '--test_name', test_name,
+         '--post_context', str(post), '--device', str(device)])
+    flags = decoding.DecodingOptions().set_flags(args)
+    reg = regression.select_regression_object(test_name, flags,
+                                              device=device)
+    reg.preset_flags()
+    data = regression.get_brain_data_object(flags, 'cpu')
+    xs, ys, ctx = reg._per_file_raw(data, sorted(data.all_files(-1)))
+    seconds = []
+    stats = []
+    for on in (device, 'cpu'):
+        t0 = time.perf_counter()
+        stats.append(engine.per_file_stats(xs, ys, want_syy=True,
+                                           batch_bytes=0, context=ctx,
+                                           device=on))
+        if on != 'cpu':
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    worst = 0.0
+    for name, got, want in zip(stats[0]._fields, *stats):
+        scale = float(want.abs().max()) or 1.0
+        err = float((got.cpu() - want).abs().max()) / scale
+        if not err <= SWEEP_TOL:
+            raise AssertionError('%s bounded-memory moments: %s on the card '
+                                 'differ from the CPU by %g of its largest'
+                                 % (test_name, name, err))
+        worst = max(worst, err)
+    return worst, len(xs), seconds[0], seconds[1]
+
+
+def phase_raw_ingest(torch, device, smi):
+    """Ingest of raw recordings, end to end on the card. (a) A lab's own
+    recordings (build_lab_recordings) through the ingest API
+    (lab_ingest: EDF, triggers, both lead estimates, fix_eeg_offset, K3)
+    into TFRecords, then ``cli.decoding.main`` with the KULeuven CCA
+    preset's contexts (streamed fit, K2; evaluation, K1). (b) A seeded
+    Telluride2015.mat through ``cli.regression_data.main --internet
+    file://...`` and ``cli.regression.main`` with telluride4_linear and
+    telluride4_cca (K2). (c) One jens_impaired subject staged as
+    ds-eeg-snhl.tar through the downloader and jens_impaired_linear
+    (K2). Checks: the planted leads within one EEG sample by both
+    estimators, the BrainVision copy within one EDF quantum, the card's
+    records within INGEST_TOL of the same ingest on the CPU, d' above 1,
+    and each sweep's best mean r at or above its matched filter's less
+    SWEEP_MARGIN; K1, K2 and K3 launched on the path."""
+    import pathlib
+    import tarfile
+    from telluride_decoding_torch.cli import regression_data as rd
+    from telluride_decoding_torch.io import ingest
+    from telluride_decoding_torch.signal import preprocess
+    start = time.perf_counter()
+    work = os.path.join(BUILD, 'raw_ingest')
+    shutil.rmtree(work, ignore_errors=True)
+    lab_root = os.path.join(work, 'lab')
+    t0 = time.perf_counter()
+    planted, names, onsets = raw_recordings.build_lab_recordings(lab_root,
+                                                                 **LAB)
+    build_s = {'lab recordings': time.perf_counter() - t0}
+    staged_bytes = {'lab recordings': tree_bytes(lab_root)}
+    t0 = time.perf_counter()
+    t4_stage = os.path.join(work, 'stage', 'Telluride2015.mat')
+    t4_matched = raw_recordings.build_telluride4_mat(t4_stage,
+                                                     **TELLURIDE4)
+    build_s['Telluride2015.mat'] = time.perf_counter() - t0
+    staged_bytes['Telluride2015.mat'] = os.path.getsize(t4_stage)
+    t0 = time.perf_counter()
+    tree = os.path.join(work, 'stage', 'ds-eeg-snhl')
+    hi_matched = raw_recordings.build_impaired_subject(tree, **IMPAIRED)
+    archive = os.path.join(work, 'stage', 'ds-eeg-snhl.tar')
+    with tarfile.open(archive, 'w') as tar:
+        tar.add(tree, arcname='ds-eeg-snhl')
+    shutil.rmtree(tree)
+    build_s['ds-eeg-snhl.tar'] = time.perf_counter() - t0
+    staged_bytes['ds-eeg-snhl.tar'] = os.path.getsize(archive)
+    rate, eeg_fs = LAB['frame_rate'], LAB['eeg_fs']
+    lab_tf = os.path.join(work, 'lab_tf')
+    runs = {}
+    k2_shapes, stop_recording = record_lag_stacks()
+    read_launches = reset_launches()
+    leads, lab_stages, _ = raw_recordings.lab_ingest(
+        ingest, preprocess, lab_root, lab_tf, names, rate, eeg_fs,
+        device=device)
+    test_file = 'trial_%02d' % LAB['trials']
+    decoding_results, decoding_report, decoding_s, lab_model = run_decoding(
+        'cca', lab_tf, os.path.join(work, 'lab_decoding'), device, test_file,
+        contexts=LAB_CONTEXTS, dims=LAB_DIMS, frame_rate=rate)
+    card_scores = lab_frame_scores(lab_model, lab_tf, device, test_file,
+                                   rate)
+    lab_launches = read_launches()
+    with environ(TMPDIR=os.path.join(work, 'tmp')):
+        os.makedirs(os.environ['TMPDIR'])
+        t4_cache, t4_tf = (os.path.join(work, 'telluride4_' + d)
+                           for d in ('cache', 'tf'))
+        t4_stages = corpus_main('telluride4', pathlib.Path(t4_stage).as_uri(),
+                                t4_cache, t4_tf, device,
+                                rd.RegressionDataTelluride4)
+        for test_name, post in (('telluride4_linear', 20),
+                                ('telluride4_cca', 21)):
+            runs[test_name] = run_regression(torch, test_name, t4_tf, work,
+                                             device, post)
+        hi_cache, hi_tf = (os.path.join(work, 'impaired_' + d)
+                           for d in ('cache', 'tf'))
+        hi_stages = corpus_main('jens_impaired',
+                                pathlib.Path(archive).as_uri(), hi_cache,
+                                hi_tf, device, rd.RegressionDataJensImpaired)
+        runs['jens_impaired_linear'] = run_regression(
+            torch, 'jens_impaired_linear', os.path.join(hi_tf, 'subject_01'),
+            work, device, 20)
+    launches = read_launches()
+    stop_recording()
+    require_launched(launches, ('lag_stack', 'fused_cca_decode',
+                                'fused_envelope_lagstack'), 'raw ingest')
+    if sum(k2_shapes.values()) != launches['lag_stack']:
+        raise AssertionError('recorded %d K2 launches of %d'
+                             % (sum(k2_shapes.values()),
+                                launches['lag_stack']))
+    # K2 at every shape this path gave it, and the jens_impaired sweep's
+    # bounded-memory moments (K2 on each file) against the CPU.
+    check_lag_stack_shapes(torch, device, k2_shapes)
+    bounded = bounded_moments_check(torch, 'jens_impaired_linear',
+                                    os.path.join(hi_tf, 'subject_01'), 20,
+                                    device)
+    if lab_launches['fused_envelope_lagstack'] != LAB['trials']:
+        raise AssertionError('the lab ingest launched K3 %d times, not %d'
+                             % (lab_launches['fused_envelope_lagstack'],
+                                LAB['trials']))
+    check_leads(leads, planted, onsets, eeg_fs)
+    bv_quanta = check_brainvision(os.path.join(lab_root, 'eeg'))
+    if not decoding_results.get('dprime', 0.0) > 1.0:
+        raise AssertionError('the lab experiment\'s dprime %s is not above '
+                             '1' % decoding_results.get('dprime'))
+    bars = {'telluride4_linear': t4_matched, 'telluride4_cca': t4_matched,
+            'jens_impaired_linear': hi_matched}
+    files = {'telluride4_linear': TELLURIDE4['trials'],
+             'telluride4_cca': TELLURIDE4['trials'],
+             'jens_impaired_linear': IMPAIRED['trials']}
+    for test_name, run in runs.items():
+        run['best_mean_r'] = sweep_gate(run, test_name,
+                                        bars[test_name] - SWEEP_MARGIN,
+                                        bars[test_name], files[test_name])
+    # The card against the CPU: the same lab ingest with the plain
+    # versions.
+    cpu_tf = os.path.join(work, 'lab_tf_cpu')
+    t0 = time.perf_counter()
+    cpu_leads, cpu_stages, _ = raw_recordings.lab_ingest(
+        ingest, preprocess, lab_root, cpu_tf, names, rate, eeg_fs,
+        device='cpu')
+    cpu_s = time.perf_counter() - t0
+    if cpu_leads != leads:
+        raise AssertionError('leads on the CPU %s vs the card %s'
+                             % (cpu_leads, leads))
+    ingest_err, n_files = compare_ingests(lab_tf, cpu_tf)
+    cpu_scores = lab_frame_scores(lab_model, lab_tf, 'cpu', test_file, rate)
+    score_err = float(np.max(np.abs(card_scores - cpu_scores)))
+    if card_scores.shape != cpu_scores.shape or score_err > SERVE_TOL:
+        raise AssertionError('the lab frame scores on the card differ from '
+                             'the CPU plain decode by %g' % score_err)
+    busy = device_busy(torch, lambda: raw_recordings.lab_ingest(
+        ingest, preprocess, lab_root, os.path.join(work, 'lab_tf_profiled'),
+        names, rate, eeg_fs, device=device))
+    written = {'lab records': tree_bytes(lab_tf),
+               'Telluride4 records': tree_bytes(t4_tf),
+               'jens_impaired records': tree_bytes(hi_tf)}
+    log('phase 12 raw ingest: staged inputs %s in %s; %s'
+        % (json.dumps(staged_bytes), fmt_stages(build_s), smi))
+    log('phase 12 lab ingest (%d trials x %d s, %d EEG channels + TRIG at %d '
+        'Hz EDF, %d Hz stereo wavs, K3 to %d Hz) on the card: %s; on the '
+        'CPU %.2f s (%s); %d files within %.2g of the CPU; BrainVision copy '
+        'within %.3f EDF quanta; profiled ingest %s'
+        % (LAB['trials'], LAB['seconds'], LAB['channels'], eeg_fs,
+           LAB['audio_fs'], rate, fmt_stages(lab_stages), cpu_s,
+           fmt_stages(cpu_stages), n_files, ingest_err, bv_quanta,
+           fmt_busy(busy)))
+    log('phase 12 lab leads (planted s, mode histogram s, Theil-Sen s, '
+        'onsets): %s' % json.dumps({
+            name: [planted[name], lead[0], round(lead[1], 7), lead[3]]
+            for name, lead in leads.items()}))
+    log('phase 12 lab decoding (CCA, contexts %s, %d dims, streamed fit) on '
+        'the card: %.2f s; results %s; stages %s; frame scores of %s (%d '
+        'frames, one K1 launch) within %.2g of the CPU plain decode; '
+        'launches %s'
+        % (LAB_CONTEXTS, LAB_DIMS, decoding_s, json.dumps(decoding_results),
+           stage_line(decoding_report), test_file, card_scores.size,
+           score_err, lab_launches))
+    for what, stages in (('Telluride4', t4_stages),
+                         ('jens_impaired', hi_stages)):
+        log('phase 12 %s through the downloader: %s' % (what,
+                                                        fmt_stages(stages)))
+    for test_name, run in runs.items():
+        log('phase 12 sweep %s: %d lambdas x %d files: %.2f s (%s); best mean '
+            'held-out r %.4f (bar %.4f: the matched filter %.4f less %g); K2 '
+            'launches %d; peak allocated %s'
+            % (test_name, SWEEP_LAMBDAS.size, files[test_name],
+               run['seconds'], stage_line(run['report']), run['best_mean_r'],
+               bars[test_name] - SWEEP_MARGIN, bars[test_name], SWEEP_MARGIN,
+               run['launches'], fmt_gb(run['peak_gb'])))
+    log('phase 12 K2 bit-exact at the %d shapes of its %d launches on the '
+        'path ([n, c] pre post: launches): %s'
+        % (len(k2_shapes), sum(k2_shapes.values()),
+           json.dumps({'[%d, %d] %d %d' % shape: count
+                       for shape, count in sorted(k2_shapes.items())})))
+    log('phase 12 jens_impaired bounded-memory moments (%d files, K2 on '
+        'each): the card %.3f s, the CPU %.3f s; largest difference %.3g '
+        'of the moment\'s largest (tolerance %g)'
+        % (bounded[1], bounded[2], bounded[3], bounded[0], SWEEP_TOL))
+    log('phase 12: bytes written %s; launches %s; %.1f s in all; %s'
+        % (json.dumps(written), launches, time.perf_counter() - start, smi))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2788,9 +3198,10 @@ def main():
     sweep = phase_sweep(torch, device, smi)
     cohort = phase_cohort(torch, device, smi)
     attention, s1 = phase_attention(torch, device, smi)
+    raw_ingest = phase_raw_ingest(torch, device, smi)
     launches = {name: codelab[name] + kuleuven[name] + decoding[name] +
-                sweep[name] + cohort[name] + attention[name]
-                for name in kuleuven}
+                sweep[name] + cohort[name] + attention[name] +
+                raw_ingest[name] for name in kuleuven}
     common = dict(route='cuda', library_ms=None)
     kernels = [
         dict(name='fused_cca_decode',

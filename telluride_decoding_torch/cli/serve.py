@@ -34,7 +34,9 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
+from telluride_decoding_torch import kernels
 from telluride_decoding_torch.cli.decoding import add_flags
 from telluride_decoding_torch.cli.infer import load_model
 from telluride_decoding_torch.decide import attention_decoder
@@ -46,6 +48,10 @@ REDUCTIONS = ('first', 'second', 'mean', 'mean-squared', 'lda')
 DECISIONS = ('wta', 'stepped', 'ssd')
 FIELDS = ('eeg', 'audio1', 'audio2')
 AOT_MANIFEST = 'aot_manifest.json'
+# A failure of the card or of a kernel is not a bad chunk: every later
+# chunk would fail alike, so it ends the session instead of being skipped.
+DEVICE_ERRORS = (kernels.KernelError,) + (
+    (torch.AcceleratorError,) if hasattr(torch, 'AcceleratorError') else ())
 
 
 def _load_serving_decoder(model_dir: str, reduction: Optional[str],
@@ -291,11 +297,21 @@ def _orient_chunk(a, frames: int, known_channels: Optional[int]
 
 def _is_keepalive(chunk) -> bool:
     """A chunk whose three fields are all present and empty lists. A
-    chunk missing a field (a misspelled key, say) is not one: it is a bad
-    line and is reported."""
+    chunk missing a field (a misspelled key, say) or with a null field is
+    not one: it is a bad line and is reported."""
     return isinstance(chunk, dict) and all(
         isinstance(chunk.get(key), list) and
         np.asarray(chunk[key]).size == 0 for key in FIELDS)
+
+
+def _chunk_fields(chunk) -> tuple:
+    """The three fields of a parsed chunk; a missing or null field
+    raises (np.asarray(None) would be one NaN frame)."""
+    fields = tuple(chunk[key] for key in FIELDS)
+    for key, value in zip(FIELDS, fields):
+        if value is None:
+            raise ValueError('field %r is null' % key)
+    return fields
 
 
 def serve_lines(model_dir: str, in_stream, *, device,
@@ -305,7 +321,8 @@ def serve_lines(model_dir: str, in_stream, *, device,
                 decoder=None) -> List[Dict]:
     """Line protocol: one JSON chunk per input line, decisions out as
     JSON lines flushed per chunk. A bad line or chunk is reported on
-    stderr and skipped; EOF ends the stream. ``decoder`` skips the model
+    stderr and skipped; EOF ends the stream, and a failure of the card or
+    a kernel (DEVICE_ERRORS) raises. ``decoder`` skips the model
     load (the TCP listener loads once); the streaming state is this
     call's own. Live serving stays chunk-synchronous: pipelining would
     hold each chunk's decisions until the next chunk arrives."""
@@ -321,14 +338,15 @@ def serve_lines(model_dir: str, in_stream, *, device,
             chunk = json.loads(line)
             if _is_keepalive(chunk):
                 continue
+            eeg, audio1, audio2 = _chunk_fields(chunk)
             eeg = _orient_chunk(
-                chunk['eeg'], -1,
-                None if server is None else server.eeg_channels)
+                eeg, -1, None if server is None else server.eeg_channels)
             known = None if server is None else server.audio_channels
-            a1 = _orient_chunk(chunk['audio1'], eeg.shape[0], known)
-            a2 = _orient_chunk(chunk['audio2'], eeg.shape[0], known)
-        except (ValueError, KeyError, TypeError, AttributeError,
-                IndexError) as error:
+            a1 = _orient_chunk(audio1, eeg.shape[0], known)
+            a2 = _orient_chunk(audio2, eeg.shape[0], known)
+        except Exception as error:
+            # Any parse error (an int too large for float32 raises
+            # OverflowError) skips the line, as in the JAX server.
             print('serve: skipping bad input line (%r): %.80s' %
                   (error, line), file=sys.stderr)
             continue
@@ -342,7 +360,9 @@ def serve_lines(model_dir: str, in_stream, *, device,
                 frame_rate=frame_rate)
         try:
             records = server.push(eeg, a1, a2)
-        except ValueError as error:
+        except DEVICE_ERRORS:
+            raise
+        except Exception as error:
             print('serve: skipping bad chunk (%s): %.80s' % (error, line),
                   file=sys.stderr)
             continue
@@ -381,8 +401,9 @@ def serve_socket(model_dir: str, address: str, *, device,
     returning on the same socket. A client half-close ends its session;
     a reset, a timeout (``idle_timeout_s`` > 0 with no data, or a dead
     peer found by TCP keepalive) or bytes that are not UTF-8 abort only
-    that session. ``max_sessions`` bounds the sessions served (None:
-    forever); ``on_bound(host, port)`` reports the bound address.
+    that session; a failure of the card or a kernel ends the listener.
+    ``max_sessions`` bounds the sessions served (None: forever);
+    ``on_bound(host, port)`` reports the bound address.
     Returns the decisions per session (-1 for an aborted one)."""
     import socket
     host, port = _parse_tcp(address)

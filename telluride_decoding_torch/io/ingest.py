@@ -1,12 +1,14 @@
 """Ingest: raw recordings (audio + brain signals) -> TFRecord files.
 
-Copy of the host half of telluride_decoding_tpu/io/ingest.py, on the
-port's TFRecord codec (data/records.py): BrainSignal, BrainTrial,
-BrainDataFile, MemoryBrainDataFile, BrainExperiment with global
-z-scoring, and the TFRecord helpers. A file written here is
-byte-identical to the JAX package's for the same arrays. The EDF
-reader (EdfBrainDataFile, parse_edf_file) and the trigger-alignment
-helpers are not ported yet.
+Copy of telluride_decoding_tpu/io/ingest.py, on the port's TFRecord
+codec (data/records.py) and EDF reader (io/edf.py): BrainSignal, the
+trigger alignment (Theil-Sen regression, mode histogram,
+remove_close_times), BrainTrial with its trigger finders, BrainDataFile,
+LocalCopy, MemoryBrainDataFile, parse_edf_file and EdfBrainDataFile,
+BrainExperiment with global z-scoring, and the TFRecord helpers. A file
+written here is byte-identical to the JAX package's for the same
+arrays. This is host code: the envelope and resampling that an ingest
+runs on the card live in signal/preprocess.py.
 """
 
 from __future__ import annotations
@@ -14,12 +16,15 @@ from __future__ import annotations
 import collections
 import os
 import pickle
-from typing import Any, Callable, Dict, List, Optional, Type, Union
+from typing import (Any, Callable, Dict, List, Optional, Tuple, Type,
+                    Union)
 
 import numpy as np
 import scipy.io.wavfile
+import scipy.stats
 
 from telluride_decoding_torch.data import records
+from telluride_decoding_torch.io import edf as edf_io
 
 
 def assert_type(var_name: str, var: Any, expected_type: Type[Any]) -> None:
@@ -67,6 +72,67 @@ class BrainSignal:
         samples = int(offset_seconds * self._sr)
         if samples > 0:
             self._signal = self._signal[samples:, ]
+
+
+# -- trigger alignment --------------------------------------------------------
+
+def find_temporal_offset_via_linear_regression(
+        audio_trigger_times, eeg_trigger_times,
+        verbose: bool = True) -> Tuple[float, int]:
+    """Theil-Sen robust regression of eeg times on audio times; returns
+    (intercept = eeg lead, outlier count)."""
+    num_points = min(len(audio_trigger_times), len(eeg_trigger_times))
+    x = np.asarray(audio_trigger_times)[:num_points]
+    y = np.asarray(eeg_trigger_times)[:num_points]
+    res = scipy.stats.theilslopes(y, x, 0.90)
+    intercept = res[1]
+    outliers = np.abs(y - (x + intercept)) > 0.1
+    return intercept, int(np.count_nonzero(outliers))
+
+
+def find_temporal_offset_via_mode_histogram(audio_triggers, eeg_triggers,
+                                            max_time: float = 0,
+                                            fs: float = 0) -> float:
+    """Mode of all pairwise (eeg - audio) event differences.
+
+    One broadcast subtraction over every (audio, eeg) pair.
+    """
+    audio = np.asarray(audio_triggers, np.float64)
+    eeg = np.asarray(eeg_triggers, np.float64)
+    if fs > 0:
+        audio = (audio * fs).astype(np.int64)
+        eeg = (eeg * fs).astype(np.int64)
+    diffs = (eeg[None, :] - audio[:, None]).reshape(-1)
+    if max_time != 0:
+        # Without fs the diffs are in seconds/samples as given, so the
+        # window is max_time itself; with fs they were scaled to
+        # samples above. (max_time * 0 filtered EVERY pair out.)
+        window = max_time * fs if fs > 0 else max_time
+        diffs = diffs[np.abs(diffs) < window]
+    if diffs.size == 0:
+        raise ValueError(
+            'No trigger-time pairs within max_time=%g (audio %d, eeg '
+            '%d onsets) - cannot estimate an offset.' %
+            (max_time, audio.size, eeg.size))
+    mode, _ = scipy.stats.mode(diffs, axis=None)
+    mode = int(mode)
+    return mode / float(fs) if fs > 0 else mode
+
+
+def remove_close_times(times, min_time: float = 0.06) -> np.ndarray:
+    """Keeps only onsets separated by at least min_time."""
+    times = sorted(times)
+    if not times:
+        # A dead trigger channel yields zero onsets; return the empty
+        # set instead of IndexError-ing on times[0].
+        return np.zeros((0,))
+    kept = [times[0]]
+    last_time = times[0]
+    for t in times[1:]:
+        if t > last_time + min_time:
+            kept.append(t)
+        last_time = t
+    return np.asarray(kept)
 
 
 class BrainTrial:
@@ -161,6 +227,11 @@ class BrainTrial:
         assert_type('brain_data', brain_data, BrainDataFile)
         if eeg_dir and not os.path.exists(eeg_dir):
             raise IOError('brain data director %s does not exist.' % eeg_dir)
+        if eeg_dir is None and isinstance(brain_data, EdfBrainDataFile):
+            # A file-backed EDF needs its directory; without one
+            # os.path.join would raise a TypeError deep inside.
+            raise IOError('brain data directory is required to load '
+                          'EDF file %s.' % brain_data.filename)
         brain_data.load_all_data(eeg_dir)
         for name in brain_data.signal_names:
             signal = brain_data.signal_values(name)
@@ -189,6 +260,49 @@ class BrainTrial:
             if data_dict[k].shape[0] != min_size:
                 data_dict[k] = data_dict[k][:min_size, :]
         return data_dict
+
+    def find_audio_trigger_times(self, channel_with_trigger: int = 1):
+        """Leading edges (0 -> positive) in the audio trigger channel."""
+        assert_type('self._sound_data', self._sound_data, np.ndarray)
+        if channel_with_trigger >= self._sound_data.shape[1]:
+            raise ValueError(
+                'Trigger channel (%d) too high for %d-channel audio.' %
+                (channel_with_trigger, self._sound_data.shape[1]))
+        trig = np.hstack((np.zeros((1,)),
+                          self._sound_data[:, channel_with_trigger]))
+        edges = np.nonzero(np.logical_and(trig[:-1] == 0, trig[1:] > 0))[0]
+        return edges / float(self._sound_fs)
+
+    def find_eeg_trigger_times(self, channel_name: str = 'TRIG'):
+        """Trigger onsets in an EEG event channel (with the Natus fix)."""
+        if channel_name not in self._brain_data:
+            raise ValueError('channel name %s not in brain data %s.' %
+                             (channel_name, list(self._brain_data.keys())))
+        trigger_signal = self._brain_data[channel_name].signal
+
+        def natus_trigger_fix(x):
+            # Level correction constants from Natus for their EDF files.
+            return np.floor(-0.0063606452364314 * (x - 5151600) +
+                            (-32768) + 0.5)
+
+        fixed = natus_trigger_fix(trigger_signal)
+        logical = fixed % 2
+        edges = np.logical_and(np.logical_not(logical[:-1]), logical[1:])
+        times = np.nonzero(edges)[0] / float(
+            self._brain_data[channel_name].sr)
+        return times, trigger_signal, fixed
+
+    def find_cognionix_trigger_time(self, channel_name: str = 'EXP32',
+                                    level: float = 8000):
+        """First time the Cognionix trigger channel exceeds level."""
+        if channel_name not in self._brain_data:
+            raise ValueError('channel name %s not in brain data %s.' %
+                             (channel_name, self._brain_data))
+        signal = self._brain_data[channel_name]
+        times = np.nonzero(signal.signal > level)[0]
+        if times.size:
+            return float(times[0]) / float(signal.sr)
+        return None
 
     def fix_eeg_offset(self, offset_seconds: float):
         for signal_name in self._brain_data:
@@ -272,6 +386,28 @@ class BrainDataFile:
         pass
 
 
+class LocalCopy:
+    """Context manager yielding a local temp copy of a file.
+
+    Readers that cannot open a remote or read-only path get a local
+    copy with the same suffix, removed on exit.
+    """
+
+    def __init__(self, remote_filename: str):
+        self._remote_filename = remote_filename
+
+    def __enter__(self) -> str:
+        import shutil
+        import tempfile
+        _, suffix = os.path.splitext(self._remote_filename)
+        self._fp = tempfile.NamedTemporaryFile(suffix=suffix)
+        shutil.copyfile(self._remote_filename, self._fp.name)
+        return self._fp.name
+
+    def __exit__(self, exception_type, exception_value, traceback):
+        self._fp.close()
+
+
 class MemoryBrainDataFile(BrainDataFile):
     """In-memory {channel: array} data file, for tests and one-offs."""
 
@@ -300,6 +436,60 @@ class MemoryBrainDataFile(BrainDataFile):
 
     def signal_fs(self, _) -> float:
         return self._my_sr
+
+
+def parse_edf_file(sample_edf_file: str) -> Dict[str, Any]:
+    """EDF parse with the reference's dict layout (via io.edf)."""
+    return edf_io.parse_edf_file(sample_edf_file)
+
+
+class EdfBrainDataFile(BrainDataFile):
+    """EDF brain-signal files (pure-Python reader)."""
+
+    def __init__(self, filename, data_type: Optional[str] = None, **kwds):
+        self._edf_dict: Dict[str, Any] = {}
+        super().__init__(filename, data_type=data_type, **kwds)
+
+    def load_all_data(self, data_dir: str):
+        if not os.path.exists(data_dir):
+            raise IOError('Data_dir does not exist: %s' % data_dir)
+        data_filename = os.path.join(data_dir, self._data_filename)
+        if not data_filename.endswith('.edf'):
+            data_filename += '.edf'
+        if not os.path.exists(data_filename):
+            raise IOError('Can not open %s for reading' % data_filename)
+        self._edf_dict = edf_io.parse_edf_file(data_filename)
+
+    @property
+    def signal_names(self) -> List[str]:
+        return self._edf_dict['labels']
+
+    def _channel_index_or_raise(self, name: str) -> int:
+        index = self.find_channel_index(name)
+        if index is None:
+            # Indexing an ndarray with None means np.newaxis - a typo'd
+            # channel name would silently return the WHOLE matrix.
+            raise ValueError('Channel %r not in EDF signals %s.' %
+                             (name, self.signal_names))
+        return index
+
+    def signal_values(self, name: str) -> np.ndarray:
+        assert_type('name', name, str)
+        return self._edf_dict['signals'][self._channel_index_or_raise(name)]
+
+    def signal_fs(self, name: str) -> float:
+        assert_type('name', name, str)
+        return self._edf_dict['sample_rates'][
+            self._channel_index_or_raise(name)]
+
+    def find_channel_index(self, desired_label: str = 'TRIG'):
+        if 'labels' not in self._edf_dict:
+            raise ValueError('Can not find labels among: %s' %
+                             self._edf_dict.keys())
+        for index, label in enumerate(self._edf_dict['labels']):
+            if label == desired_label:
+                return index
+        return None
 
 
 class BrainExperiment:

@@ -10,7 +10,8 @@ builds nothing: the CPU tests import every module of the port.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
-exception.
+exception. A kernel that cannot be built, loaded or launched raises
+:class:`KernelError`.
 """
 
 from __future__ import annotations
@@ -36,6 +37,10 @@ _INT = ctypes.c_int
 _lib: Optional[ctypes.CDLL] = None
 
 
+class KernelError(RuntimeError):
+    """A kernel failed to build, load or launch."""
+
+
 def _sources():
     return sorted(CSRC_DIR.glob('*.cu'))
 
@@ -56,8 +61,8 @@ def _nvcc() -> str:
     default = '/usr/local/cuda/bin/nvcc'
     if os.path.exists(default):
         return default
-    raise RuntimeError('nvcc not found (PATH or /usr/local/cuda/bin): the '
-                       'CUDA kernels cannot be built.')
+    raise KernelError('nvcc not found (PATH or /usr/local/cuda/bin): the '
+                      'CUDA kernels cannot be built.')
 
 
 def build() -> Path:
@@ -94,8 +99,8 @@ def build() -> Path:
         failed = [(cmd, rc, output) for cmd, rc, output in log if rc != 0]
         if failed:
             cmd, rc, output = failed[0]
-            raise RuntimeError('nvcc failed (rc %d): %s\n%s'
-                               % (rc, ' '.join(cmd), output[-4000:]))
+            raise KernelError('nvcc failed (rc %d): %s\n%s'
+                              % (rc, ' '.join(cmd), output[-4000:]))
         # Atomic: a concurrent build sees either no library or a whole one.
         os.replace(tmp, path)
     return path
@@ -105,7 +110,11 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        path = build()
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as error:
+            raise KernelError('cannot load %s: %s' % (path, error)) from error
         lib.tdt_lag_stack_f32.argtypes = [_VOID_P, _VOID_P, _INT, _INT,
                                           _INT, _INT, _VOID_P]
         lib.tdt_lag_stack_f32.restype = _INT
@@ -131,7 +140,7 @@ def check(code: int, what: str) -> None:
     """Raises if a C entry point reported a CUDA error."""
     if code != 0:
         message = library().tdt_error_string(code).decode()
-        raise RuntimeError('%s: CUDA error %d (%s)' % (what, code, message))
+        raise KernelError('%s: CUDA error %d (%s)' % (what, code, message))
 
 
 def stream_handle(device) -> int:

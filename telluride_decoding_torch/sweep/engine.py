@@ -50,7 +50,7 @@ from telluride_decoding_torch.data.brain_data import device_file_moments
 from telluride_decoding_torch.ops.covariance import (MomentStats,
                                                      blocked_moments,
                                                      zeros_moments)
-from telluride_decoding_torch.ops.lagstack import lag_stack_np
+from telluride_decoding_torch.ops.lagstack import lag_stack
 from telluride_decoding_torch.solvers.cca import cca_covariances_from_stats
 from telluride_decoding_torch.solvers.ridge import (_augmented_moments,
                                                     solve_ridge_from_moments)
@@ -220,17 +220,19 @@ def _pad_stats_files(stats: MomentStats, pad_files_to: Optional[int],
     return stats
 
 
-def _host_stack_one(x, y, ctx: ContextSpec):
-    """Host lag expansion of ONE file (bounded-memory regime):
-    lag_stack_np + truncation to n_i, value-identical to the device
-    expansion."""
-    x, y = _host(x), _host(y)
-    n = x.shape[0] - ctx.x_post
-    xs = (lag_stack_np(x, ctx.x_pre, ctx.x_post)[:n]
-          if (ctx.x_pre or ctx.x_post) else x[:n])
-    ys = (lag_stack_np(y, ctx.y_pre, ctx.y_post)[:n]
-          if (ctx.y_pre or ctx.y_post) else y[:n])
-    return xs, ys
+def _device_stack_one(raw, pre: int, post: int, rows: int, device
+                      ) -> torch.Tensor:
+    """Lag expansion of ONE file's raw stream on ``device``
+    (bounded-memory regime), as a [rows, ...] buffer: the raw rows go up
+    zero-padded behind and kernel K2 stacks them on a card (its plain
+    version on the CPU) straight into the buffer the moments read. Rows
+    below the file's n_i equal lag_stack_np's; the moments mask the rest.
+    """
+    raw = _to_device(raw, device)
+    padded = torch.zeros((max(rows, raw.shape[0]), raw.shape[1]),
+                         dtype=torch.float32, device=device)
+    padded[:raw.shape[0]] = raw
+    return lag_stack(padded, pre, post)[:rows]
 
 
 def _batch_bytes_from_env() -> int:
@@ -267,7 +269,8 @@ def per_file_stats(per_file_x: Sequence, per_file_y: Sequence,
     are raw streams in the ContextSpec layout. The batched regime
     uploads the raw channels once and lag-stacks each file on the device
     (K2); ``pad_frames_to`` then refers to the common (zip-truncated)
-    frame axis. The streaming regime stacks each file on the host.
+    frame axis. The streaming regime uploads and stacks one file at a
+    time (K2 too).
     """
     device = device_policy.resolve(device)
     if batch_bytes is None:
@@ -313,7 +316,7 @@ def per_file_stats(per_file_x: Sequence, per_file_y: Sequence,
             del xs, ys
             return _pad_stats_files(stats, pad_files_to, num_real)
         # Bounded-memory regime: the streaming loop below stacks each
-        # file on the host right before its moments.
+        # file on the device right before its moments.
     max_n = max(max(x.shape[0] for x in per_file_x), pad_frames_to or 0)
     width = per_file_x[0].shape[1] + per_file_y[0].shape[1]
     est = num_f_est * max_n * width * 4
@@ -339,16 +342,18 @@ def per_file_stats(per_file_x: Sequence, per_file_y: Sequence,
 
     stats_list = []
     for x, y in zip(per_file_x, per_file_y):
-        if ctx is not None:
-            x, y = _host_stack_one(x, y, ctx)
-        n = x.shape[0]
+        n = x.shape[0] - (ctx.x_post if ctx is not None else 0)
         padded = -(-n // frame_bucket) * frame_bucket
-        xp = torch.zeros((padded, x.shape[1]), dtype=torch.float32,
-                         device=device)
-        yp = torch.zeros((padded, y.shape[1]), dtype=torch.float32,
-                         device=device)
-        xp[:n] = _to_device(x, device)
-        yp[:y.shape[0]] = _to_device(y, device)
+        if ctx is not None:
+            xp = _device_stack_one(x, ctx.x_pre, ctx.x_post, padded, device)
+            yp = _device_stack_one(y, ctx.y_pre, ctx.y_post, padded, device)
+        else:
+            xp = torch.zeros((padded, x.shape[1]), dtype=torch.float32,
+                             device=device)
+            yp = torch.zeros((padded, y.shape[1]), dtype=torch.float32,
+                             device=device)
+            xp[:n] = _to_device(x, device)
+            yp[:y.shape[0]] = _to_device(y, device)
         valid = (torch.arange(padded, device=device) < n).float()
         stats_list.append(blocked_moments(xp, yp, want_syy=want_syy,
                                           valid=valid, block=frame_bucket))

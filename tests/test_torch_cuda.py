@@ -370,6 +370,30 @@ def test_sweep_grid_on_card_matches_cpu(cuda, grid):
 
 
 @pytest.mark.cuda
+def test_streaming_moments_stack_each_file_on_card(cuda):
+    """The sweep's bounded-memory regime (batch_bytes 0) uploads each
+    file's raw channels and lag-stacks them on the card (one K2 launch
+    per file per lagged input); its moments match the same regime on the
+    CPU within 1e-4 relative."""
+    from telluride_decoding_torch.sweep import engine
+    rng = np.random.RandomState(8)
+    ctx = engine.ContextSpec(0, 8, 2, 2)
+    xs, ys = [], []
+    for n in (700, 1300, 900):
+        xs.append(rng.randn(n + ctx.x_post, 16).astype(np.float32))
+        ys.append(rng.randn(n + ctx.y_post, 1).astype(np.float32))
+    before = lagstack.lag_stack.launches
+    got = engine.per_file_stats(xs, ys, True, batch_bytes=0, context=ctx,
+                                frame_bucket=256, device=cuda)
+    assert lagstack.lag_stack.launches - before == 2 * len(xs)
+    want = engine.per_file_stats(xs, ys, True, batch_bytes=0, context=ctx,
+                                 frame_bucket=256, device='cpu')
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-3)
+
+
+@pytest.mark.cuda
 def test_cohort_on_card_matches_cpu(cuda, tmp_path):
     """cli.cohort's sweep over a tiny ragged cohort on the card (K2 once
     a trial) against the same sweep on the CPU: grids and summary within

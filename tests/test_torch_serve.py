@@ -19,8 +19,10 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from telluride_decoding_tpu.cli import serve as jax_serve
+from telluride_decoding_torch import kernels
 from telluride_decoding_torch.cli import serve
 from telluride_decoding_torch.ops.lagstack import lag_stack_np
 from test_torch_infer_decoder import jax_model_dir, recordings
@@ -115,7 +117,8 @@ def test_main_refuses_tcp(served, address):
 
 
 def test_import_leaves_jax_out():
-    """The port's entry point imports neither jax nor the JAX package."""
+    """The port's modules import neither jax nor the JAX package, nor
+    pandas or h5py."""
     code = (
         'import sys\n'
         'for name in list(sys.modules):\n'
@@ -137,11 +140,15 @@ def test_import_leaves_jax_out():
         'import telluride_decoding_torch.utils.stdio\n'
         'import telluride_decoding_torch.data.records\n'
         'import telluride_decoding_torch.io.ingest\n'
+        'import telluride_decoding_torch.io.edf\n'
+        'import telluride_decoding_torch.io.brainvision\n'
+        'import telluride_decoding_torch.cli.add_trigger\n'
         'import telluride_decoding_torch.models.convert\n'
         'import telluride_decoding_torch.signal.audio_stores\n'
         'import telluride_decoding_torch.signal.preprocess\n'
         'bad = sorted(n for n in sys.modules if n.split(".")[0] in '
-        '("jax", "jaxlib", "telluride_decoding_tpu", "absl"))\n'
+        '("jax", "jaxlib", "telluride_decoding_tpu", "absl", "pandas", '
+        '"h5py"))\n'
         'assert not bad, bad\n')
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                           env=dict(os.environ, PYTHONPATH=REPO),
@@ -240,6 +247,135 @@ def test_jax_drops_a_misspelled_key_silently(served, capsys):
     # A chunk whose eeg is there does reach the error path in JAX.
     jax_serve.serve_lines(path, io.StringIO(bad_audio + '\n'))
     assert 'skipping bad input line' in capsys.readouterr().err
+
+
+# A JSON integer too large for float32: np.asarray(..., np.float32)
+# raises OverflowError on it.
+OVERSIZED = '{"eeg": [1' + '0' * 400 + '], "audio1": [1], "audio2": [1]}'
+ALL_NULL = '{"eeg": null, "audio1": null, "audio2": null}'
+
+
+def _scores(decisions):
+    return [(d['score1'], d['score2']) for d in decisions]
+
+
+@pytest.mark.parametrize('bad', [OVERSIZED, ALL_NULL])
+def test_bad_line_is_reported_and_skipped(served, capsys, bad):
+    """An oversized number and an all-null chunk are bad lines: reported
+    on stderr, no frame pushed, the session goes on."""
+    path, stream = served
+    lines = _lines(stream, frames=200)
+    got = serve.serve_lines(path, io.StringIO('\n'.join(
+        [lines[0], bad] + lines[1:]) + '\n'), device='cpu')
+    err = capsys.readouterr().err
+    assert err.count('skipping bad input line') == 1
+    want = serve.serve_lines(path, io.StringIO('\n'.join(lines) + '\n'),
+                             device='cpu')
+    assert _scores(got) == _scores(want) and len(got) >= 2
+    assert np.all(np.isfinite(_scores(got)))
+
+
+@pytest.mark.parametrize('bad', [OVERSIZED, ALL_NULL])
+def test_jax_skips_the_bad_line(served, bad):
+    """The JAX server skips both lines too (the oversized number on its
+    error path, the all-null chunk as a keepalive,
+    telluride_decoding_tpu/cli/serve.py:463-478), so the two packages
+    serve the same decisions around them."""
+    path, stream = served
+    lines = _lines(stream, frames=200)
+    text = '\n'.join([lines[0], bad] + lines[1:]) + '\n'
+    got = serve.serve_lines(path, io.StringIO(text), device='cpu')
+    want = jax_serve.serve_lines(path, io.StringIO(text))
+    assert_same_decisions(got, want)
+
+
+def test_single_null_field_is_reported(served, capsys):
+    path, stream = served
+    lines = _lines(stream, frames=200)
+    eeg, _, a2 = stream
+    bad = json.dumps({'eeg': eeg[:1].tolist(), 'audio1': None,
+                      'audio2': a2[:1].tolist()})
+    got = serve.serve_lines(path, io.StringIO('\n'.join(
+        [lines[0], bad] + lines[1:]) + '\n'), device='cpu')
+    err = capsys.readouterr().err
+    assert err.count('skipping bad input line') == 1 and 'null' in err
+    want = serve.serve_lines(path, io.StringIO('\n'.join(lines) + '\n'),
+                             device='cpu')
+    assert _scores(got) == _scores(want)
+
+
+def test_jax_serves_a_single_null_field_as_a_nan_frame(served, capsys):
+    """The shared reference fault the port does not copy: in a one-frame
+    mono chunk, JAX turns a null audio field into np.asarray(None,
+    float32), one NaN frame (telluride_decoding_tpu/cli/serve.py:417-423),
+    and pushes it; the windows that hold it score NaN and every later
+    window is shifted by one frame."""
+    path, stream = served
+    lines = _lines(stream, frames=200)
+    eeg, _, a2 = stream
+    bad = json.dumps({'eeg': eeg[:1].tolist(), 'audio1': None,
+                      'audio2': a2[:1].tolist()})
+    got = jax_serve.serve_lines(path, io.StringIO('\n'.join(
+        [lines[0], bad] + lines[1:]) + '\n'))
+    assert capsys.readouterr().err == ''
+    assert any(np.isnan(d['score1']) for d in got)
+
+
+class _FailingLibrary:
+    """Stands in for the kernel library: every code is a CUDA error."""
+
+    @staticmethod
+    def tdt_error_string(code):
+        return b'an illegal memory access was encountered'
+
+
+def _kernel_fails():
+    kernels.check(700, 'fused_cca_decode')
+
+
+def _torch_op_fails():
+    raise torch.AcceleratorError('CUDA error: an illegal memory access was '
+                                 'encountered')
+
+
+def _fail_every_push(monkeypatch, fail):
+    monkeypatch.setattr(kernels, 'library', lambda: _FailingLibrary)
+    monkeypatch.setattr(serve.StreamingAttentionServer, 'push',
+                        lambda self, eeg, audio1, audio2: fail())
+
+
+@pytest.mark.parametrize('fail', [_kernel_fails, _torch_op_fails],
+                         ids=['kernel', 'torch_op'])
+def test_failing_launch_ends_serve_lines(served, monkeypatch, capsys, fail):
+    """A failure of the card is not a bad chunk: serve_lines raises
+    instead of skipping every chunk and serving nothing."""
+    path, stream = served
+    lines = _lines(stream, frames=200)
+    _fail_every_push(monkeypatch, fail)
+    with pytest.raises(serve.DEVICE_ERRORS, match='illegal memory access'):
+        serve.serve_lines(path, io.StringIO('\n'.join(lines) + '\n'),
+                          device='cpu')
+    assert 'skipping' not in capsys.readouterr().err
+
+
+def test_bad_chunk_content_is_still_skipped(served, monkeypatch, capsys):
+    """Errors other than the card's (here an OverflowError out of push)
+    skip the chunk, as the JAX server does."""
+    path, stream = served
+    lines = _lines(stream, frames=200)
+    real_push = serve.StreamingAttentionServer.push
+    calls = []
+
+    def push(self, eeg, audio1, audio2):
+        calls.append(1)
+        if len(calls) == 2:
+            raise OverflowError('int too large to convert to float')
+        return real_push(self, eeg, audio1, audio2)
+    monkeypatch.setattr(serve.StreamingAttentionServer, 'push', push)
+    got = serve.serve_lines(path, io.StringIO('\n'.join(lines) + '\n'),
+                            device='cpu')
+    assert capsys.readouterr().err.count('skipping bad chunk') == 1
+    assert len(calls) == len(lines) and len(got) >= 1
 
 
 class _Probability:
@@ -393,6 +529,35 @@ class TestServeSocket:
         t.join(timeout=60)
         assert not t.is_alive() and 'error' not in box
         assert box['counts'][0] == -1 and box['counts'][1] == len(got) >= 1
+
+    def test_survives_an_oversized_number(self, served):
+        """A line whose number overflows float32 is skipped, the session
+        is served to its end, and the listener takes the next one."""
+        path, stream = served
+        lines = _lines(stream, frames=200)
+        host, port, t, box = self._start(path, max_sessions=2)
+        first = self._session(host, port, [OVERSIZED] + lines)
+        second = self._session(host, port, lines)
+        t.join(timeout=60)
+        assert not t.is_alive() and 'error' not in box
+        assert box['counts'] == [len(first), len(second)]
+        assert len(first) >= 1 and _scores(first) == _scores(second)
+
+    def test_failing_launch_ends_the_listener(self, served, monkeypatch):
+        """A card failure is not a session's fault: it ends the listener
+        with the KernelError, not an aborted session and a next one."""
+        path, stream = served
+        lines = _lines(stream, frames=200)
+        _fail_every_push(monkeypatch, _kernel_fails)
+        host, port, t, box = self._start(path, max_sessions=2)
+        try:
+            got = self._session(host, port, lines)
+        except OSError:     # The listener closed with the chunks unread.
+            got = []
+        assert got == []
+        t.join(timeout=60)
+        assert not t.is_alive() and 'counts' not in box
+        assert isinstance(box['error'], kernels.KernelError)
 
     def test_idle_timeout_aborts_the_session(self, served):
         path, stream = served

@@ -165,6 +165,24 @@ def test_per_file_stats_context_matches_jax(batch_bytes, ctx):
                                    **STATS_TOL)
 
 
+@pytest.mark.parametrize('ctx', [(0, POST, 0, 0), (1, POST, 2, 1)],
+                         ids=['x_only', 'x_and_y'])
+def test_streaming_context_equals_host_stack(ctx):
+    """The bounded-memory regime stacks each raw file into its
+    bucket-padded buffer: the moments equal, bit for bit, those of the
+    same regime over the host-stacked files."""
+    ctx_t = engine.ContextSpec(*ctx)
+    xs_raw, ys_raw, xs_host, ys_host = _context_corpus(6, ctx_t)
+    got = engine.per_file_stats(xs_raw, ys_raw, want_syy=True,
+                                context=ctx_t, batch_bytes=0,
+                                frame_bucket=128, device='cpu')
+    want = engine.per_file_stats(xs_host, ys_host, want_syy=True,
+                                 batch_bytes=0, frame_bucket=128,
+                                 device='cpu')
+    for name, g, w in zip(covariance.MomentStats._fields, got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=name)
+
+
 def test_per_file_stats_rejects_bad_layouts():
     xs, ys = _stacked_corpus(3)
     with pytest.raises(ValueError, match='5 x files but 4 y'):
