@@ -67,7 +67,16 @@ drives the two main paths once:
   a 24-bit BDF, the events TSV and the stimuli features) through
   ``cli.regression_data.main --internet file://...`` (download, untar,
   ingest) -> ``cli.regression.main`` (telluride4_linear,
-  telluride4_cca, jens_impaired_linear; K2).
+  telluride4_cca, jens_impaired_linear; K2);
+
+  model files: the decoding path's linear model through
+  ``cli.export_keras --saved-model`` and back through
+  ``cli.migrate_saved_model``; the codelab model written in the layout
+  tf_keras writes for the reference's subclassed CCA (saved_model.pb,
+  keras_metadata.pb, positional variables/) and served as it is by
+  ``cli.serve`` (K1 a chunk) beside its native directory, then
+  migrated; its weights' bundle read from snappy index blocks; and a
+  CCA SavedModel of ``export_saved_model``, which migration refuses.
 
 Decisions must track the planted switch, served scores must match a
 CPU decode of the same stream with the plain versions, the decoding
@@ -89,7 +98,11 @@ one EEG sample by both estimators, its BrainVision copy must read within
 one EDF quantum of the EDF, its records on the card within INGEST_TOL of
 the same ingest on the CPU, the lab experiment's d' above 1 and each
 corpus sweep's best mean r at or above its planted matched filter's less
-SWEEP_MARGIN.
+SWEEP_MARGIN. Exported and migrated weights must keep their bits, the
+linear model its predictions, the reference-layout CCA directory must
+serve the native directory's scores and decisions bit for bit, the
+snappy bundle must read as the uncompressed one, and the CCA export
+must be refused with the JAX package's text.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -113,7 +126,7 @@ import time
 
 import numpy as np
 
-from tools import raw_recordings
+from tools import raw_recordings, snappy_blocks
 
 IN1_CHANNELS, PRE, POST = 69, 0, 36            # 69 x 37 = 2553 columns.
 IN2_PRE, IN2_POST = 15, 15                     # 1 x 31 columns.
@@ -173,6 +186,17 @@ INFER_CPU_SSD_SIZES = [700, 1000]
 SSD_PLAIN_WINDOWS = 3
 REPO = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(REPO, 'build')
+CODELAB_DIR = os.path.join(BUILD, 'chip_smoke_model')   # Phase 4's model.
+DECODING_DIR = os.path.join(BUILD, 'decoding')          # Phase 8's work.
+# Phase 13: the text with which models/migrate.py (as the JAX package's,
+# telluride_decoding_tpu/models/migrate.py:133-138) refuses a CCA
+# SavedModel written by export_saved_model: its two Dense kernels.
+CCA_EXPORT_REFUSAL = (
+    "Reference SavedModel has 2 dense kernels "
+    "(['layer_with_weights-0/kernel/.ATTRIBUTES/VARIABLE_VALUE', "
+    "'layer_with_weights-1/kernel/.ATTRIBUTES/VARIABLE_VALUE']) — a "
+    "DNN/classifier model. Only the deterministic families (linear "
+    "regression, CCA) migrate; retrain DNNs natively with cli.decoding.")
 # S1's chain measurements (s1_bound): a source of their own that includes
 # S1's, built beside the kernel library, not into it.
 S1_CHAIN_SOURCE = os.path.join(REPO, 'chip_smoke_csrc', 's1_chain.cu')
@@ -976,7 +1000,7 @@ def require_launched(launches, names, path):
 
 
 def phase_slice(torch, device, smi):
-    model_dir = os.path.join(BUILD, 'chip_smoke_model')
+    model_dir = CODELAB_DIR
     read_launches = reset_launches()
     decisions, summary, stream, times = run_slice(device, model_dir)
     launches = read_launches()
@@ -1405,7 +1429,7 @@ def phase_decoding(torch, device, smi):
     against the CPU's plain decode of the same model."""
     from telluride_decoding_torch.cli import serve
     start = time.perf_counter()
-    work = os.path.join(BUILD, 'decoding')
+    work = DECODING_DIR
     data_dir = os.path.join(work, 'records')
     short_dir = os.path.join(work, 'records_short')
     test_file = decoding_corpus(data_dir, short_dir=short_dir)
@@ -2713,7 +2737,7 @@ def phase_attention(torch, device, smi):
             's; launches %s' % (INFER_TRAIN_FILES, labels.size,
                                 INFER_SEGMENTS - 1, corpus_s, train_s,
                                 infer_launches))
-        slice_dir = os.path.join(BUILD, 'chip_smoke_model')
+        slice_dir = CODELAB_DIR
         stream_path = os.path.join(slice_dir, 'stream.npz')
         with np.load(stream_path) as data:
             stream = (data['eeg'], data['audio1'], data['audio2'])
@@ -3179,6 +3203,212 @@ def phase_raw_ingest(torch, device, smi):
     return launches
 
 
+def quiet_call(fn, *args):
+    """Seconds of one call of ``fn``, its printed lines dropped."""
+    import io
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        fn(*args)
+    return time.perf_counter() - t0
+
+
+def saved_model_files(model_dir):
+    """(model.json as a dict, weights.npz's arrays) of a model directory."""
+    with open(os.path.join(model_dir, 'model.json')) as f:
+        meta = json.load(f)
+    with np.load(os.path.join(model_dir, 'weights.npz')) as npz:
+        return meta, {k: npz[k] for k in npz.files}
+
+
+def require_same_bits(got, want, what):
+    """Raises unless two {name: array} dicts hold the same names, dtypes,
+    shapes and bytes (of each element of a string array)."""
+    def same(g, w):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            return False
+        if w.dtype == object:
+            return list(g.reshape(-1)) == list(w.reshape(-1))
+        return g.tobytes() == w.tobytes()
+    if sorted(got) != sorted(want) or not all(same(got[k], want[k])
+                                              for k in want):
+        raise AssertionError('%s: %s differ from %s' % (
+            what, {k: (v.dtype, v.shape) for k, v in got.items()},
+            {k: (v.dtype, v.shape) for k, v in want.items()}))
+
+
+def snappy_bundle(work, weights, meta):
+    """The codelab CCA weights as a bundle in the reference's positional
+    layout, and a copy whose index blocks are snappy; returns the two
+    reads, each with its seconds."""
+    from telluride_decoding_torch.data.records import masked_crc32c
+    from telluride_decoding_torch.io import tf_checkpoint
+    plain = os.path.join(work, 'bundle', 'variables')
+    packed = os.path.join(work, 'bundle_snappy', 'variables')
+    for prefix in (plain, packed):
+        os.makedirs(os.path.dirname(prefix))
+    tensors = {'variables/%d/.ATTRIBUTES/VARIABLE_VALUE' % i: weights[name]
+               for i, name in enumerate(('mean1', 'mean2', 'rot1', 'rot2'))}
+    for attr in ('telluride_metadata', 'telluride_inputs',
+                 'telluride_output'):
+        if meta.get(attr):
+            tensors['%s/.ATTRIBUTES/VARIABLE_VALUE' % attr] = np.array(
+                meta[attr].encode('utf-8'), dtype=object)
+    tf_checkpoint.write_tensor_bundle(plain, tensors)
+    blocks = snappy_blocks.snappy_index(plain + '.index', packed + '.index',
+                                        masked_crc32c)
+    shutil.copyfile(plain + '.data-00000-of-00001',
+                    packed + '.data-00000-of-00001')
+    reads = {}
+    for name, prefix in (('uncompressed', plain), ('snappy', packed)):
+        t0 = time.perf_counter()
+        reads[name] = (tf_checkpoint.read_tensor_bundle(prefix),
+                       time.perf_counter() - t0)
+    sizes = {name: os.path.getsize(prefix + '.index')
+             for name, prefix in (('uncompressed', plain),
+                                  ('snappy', packed))}
+    return reads, blocks, sizes
+
+
+def phase_model_files(torch, device, smi):
+    """Model files on the card: phase 8's linear model exported as a
+    SavedModel and migrated back (the same bits, the same predictions on
+    the test file); phase 4's CCA model written in the layout tf_keras
+    writes for the reference's subclassed CCA (saved_model.pb and
+    keras_metadata.pb of export_keras --saved-model, a positional
+    variables/ of --variables, decoder_model.json), served directly by
+    cli.serve (K1) with scores and decisions bit-identical to the native
+    directory's, then migrated (the same weights, config and telluride
+    strings); the CCA weights' bundle read back from snappy index blocks;
+    and the copied refusal of a CCA SavedModel written by
+    export_saved_model."""
+    from telluride_decoding_torch.cli import export_keras
+    from telluride_decoding_torch.cli import migrate_saved_model, serve
+    from telluride_decoding_torch.io.saved_model_pb import export_saved_model
+    from telluride_decoding_torch.models.brain_model import load_model
+    from telluride_decoding_torch.models.migrate import (
+        load_reference_saved_model)
+    from telluride_decoding_torch.ops.lagstack import lag_stack_np
+    start = time.perf_counter()
+    linear_src = os.path.join(DECODING_DIR, 'linear_model')
+    for path in (CODELAB_DIR, linear_src):
+        if not os.path.isfile(os.path.join(path, 'model.json')):
+            raise AssertionError('phase 13 reads the models of phases 4 and '
+                                 '8; %s has none' % path)
+    work = os.path.join(BUILD, 'model_files')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    dev = ['--device', str(device)]
+    export_s, migrate_s = {}, {}
+    read_launches = reset_launches()
+    # 1. Linear: a SavedModel and back.
+    linear_sm = os.path.join(work, 'linear_saved_model')
+    linear_back = os.path.join(work, 'linear_migrated')
+    export_s['saved_model linear'] = quiet_call(
+        export_keras.app_main, dev + ['--saved-model', linear_src, linear_sm])
+    migrate_s['linear'] = quiet_call(migrate_saved_model.app_main,
+                                     dev + [linear_sm, linear_back])
+    require_same_bits(saved_model_files(linear_back)[1],
+                      saved_model_files(linear_src)[1],
+                      'migrated linear weights')
+    test_file = 'trial_%02d' % (DECODING_FILES - 1)
+    test = brain_data(os.path.join(DECODING_DIR, 'records'), device, None,
+                      100, (PRE, POST, 0, 0), test_file_pattern=test_file,
+                      shuffle_buffer_size=0).create_dataset('test')
+    predictions = [load_model(d, device).predict(test)
+                   for d in (linear_src, linear_back)]
+    if not np.array_equal(predictions[0], predictions[1]):
+        raise AssertionError('the migrated linear model predicts otherwise')
+    # 2. The reference layout of the CCA model.
+    reference = os.path.relpath(os.path.join(work, 'reference_cca'))
+    export_s['saved_model cca'] = quiet_call(
+        export_keras.app_main, dev + ['--saved-model', CODELAB_DIR,
+                                      reference])
+    shutil.rmtree(os.path.join(reference, 'variables'))
+    export_s['variables cca'] = quiet_call(
+        export_keras.app_main, dev + ['--variables', CODELAB_DIR, reference])
+    # 3. Served as it is, beside the native directory.
+    with np.load(os.path.join(CODELAB_DIR, 'stream.npz')) as data:
+        stream = (data['eeg'], data['audio1'], data['audio2'])
+    served = {}
+    for name, model_dir in (('native', CODELAB_DIR),
+                            ('reference', reference)):
+        served[name] = serve_stream(model_dir, stream, device, 100)
+    launches = read_launches()
+    require_launched(launches, ('fused_cca_decode',), 'model_files')
+    if not same_decisions(served['reference'][0], served['native'][0]):
+        raise AssertionError('the reference-layout directory serves other '
+                             'scores or decisions than the native one')
+    eeg, a1, a2 = stream
+    correct = check_decisions(*served['reference'][:2],
+                              stream_frames=eeg.shape[0])
+    n = eeg.shape[0] - max(POST, IN2_POST)
+    frames = (lag_stack_np(eeg, PRE, POST)[:n],
+              lag_stack_np(a1, IN2_PRE, IN2_POST)[:n],
+              lag_stack_np(a2, IN2_PRE, IN2_POST)[:n], a1[:n], a2[:n])
+    scores = {name: serve.load_model(d, 'lda', device).infer_pair(*frames)
+              for name, d in (('native', CODELAB_DIR),
+                              ('reference', reference))}
+    if not all(np.array_equal(g, w) for g, w in zip(scores['reference'],
+                                                    scores['native'])):
+        raise AssertionError('the reference-layout directory scores the '
+                             'stream otherwise than the native one')
+    # 4. Migrated to a native directory.
+    migrated = os.path.join(work, 'reference_cca_migrated')
+    migrate_s['cca'] = quiet_call(migrate_saved_model.app_main,
+                                  dev + [reference, migrated])
+    source_meta, source_weights = saved_model_files(CODELAB_DIR)
+    migrated_meta, migrated_weights = saved_model_files(migrated)
+    require_same_bits(migrated_weights, source_weights,
+                      'migrated CCA weights')
+    # The SavedModel carries no lambda: it migrates as 0.0, as in JAX.
+    lambdas = (source_meta['config'].pop('regularization_lambda'),
+               migrated_meta['config'].pop('regularization_lambda'))
+    if migrated_meta != source_meta or lambdas[1] != 0.0:
+        raise AssertionError('migrated model.json %s (lambda %s) differs '
+                             'from the source\'s %s'
+                             % (migrated_meta, lambdas[1], source_meta))
+    # 5. Snappy index blocks.
+    reads, blocks, sizes = snappy_bundle(work, source_weights, source_meta)
+    require_same_bits(reads['snappy'][0], reads['uncompressed'][0],
+                      'snappy bundle')
+    # 6. The copied refusal: export_saved_model writes the CCA model with
+    # two Dense kernels, which migration refuses as a DNN.
+    exported = os.path.join(work, 'cca_export')
+    t0 = time.perf_counter()
+    export_saved_model(load_model(CODELAB_DIR, device), exported)
+    export_s['export_saved_model cca'] = time.perf_counter() - t0
+    try:
+        load_reference_saved_model(exported, device=device)
+    except ValueError as error:
+        refusal = str(error)
+    else:
+        raise AssertionError('a CCA SavedModel of export_saved_model '
+                             'migrated; the JAX package refuses it')
+    if refusal != CCA_EXPORT_REFUSAL:
+        raise AssertionError('refused with %r, not the JAX text %r'
+                             % (refusal, CCA_EXPORT_REFUSAL))
+    log('phase 13 model files: linear SavedModel and back: weights '
+        'bit-identical, %d test-file predictions identical; the reference '
+        'layout of the codelab CCA (%s) served as it is: %d windows, %.3f on '
+        'the planted side, scores and decisions bit-identical to the native '
+        'directory\'s; migrated weights bit-identical, config and telluride '
+        'strings equal (lambda %s -> %s); snappy bundle (%d blocks, index %d '
+        '-> %d bytes) reads equal; CCA export refused with the JAX text'
+        % (predictions[0].shape[0], reference, len(served['reference'][0]),
+           correct, lambdas[0], lambdas[1], blocks, sizes['uncompressed'],
+           sizes['snappy']))
+    log('phase 13 model_files: ' + json.dumps({
+        'export_s': export_s,
+        'bundle_read_s': {k: v[1] for k, v in reads.items()},
+        'migrate_s': migrate_s,
+        'serve_p50_ms': {k: v[1]['latency_p50_ms'] for k, v in served.items()},
+        'serve_p95_ms': {k: v[1]['latency_p95_ms'] for k, v in served.items()},
+        'k1_launches': launches['fused_cca_decode']}))
+    log('phase 13: launches %s; %.1f s in all; %s'
+        % (launches, time.perf_counter() - start, smi))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3199,9 +3429,10 @@ def main():
     cohort = phase_cohort(torch, device, smi)
     attention, s1 = phase_attention(torch, device, smi)
     raw_ingest = phase_raw_ingest(torch, device, smi)
+    model_files = phase_model_files(torch, device, smi)
     launches = {name: codelab[name] + kuleuven[name] + decoding[name] +
                 sweep[name] + cohort[name] + attention[name] +
-                raw_ingest[name] for name in kuleuven}
+                raw_ingest[name] + model_files[name] for name in kuleuven}
     common = dict(route='cuda', library_ms=None)
     kernels = [
         dict(name='fused_cca_decode',

@@ -20,8 +20,11 @@ same line protocol, decisions returning on the socket, the model loaded
 once and sessions served one after another, each with fresh streaming
 state. ``--selftest`` serves a toy linear model and checks the decisions
 track a planted attention switch. The flags keep the names of the JAX
-package's tdt-serve; ``--serve_device`` (default cuda) is new. AOT
-artifact directories (``aot_manifest.json``) are not read yet.
+package's tdt-serve; ``--serve_device`` (default cuda) is new. The
+model directory is a native one (model.json) or a reference TF SavedModel
+(saved_model.pb), migrated on the fly (models/migrate.py) beside its
+decoder_model.json. AOT artifact directories (``aot_manifest.json``) are
+not read yet.
 """
 
 from __future__ import annotations

@@ -240,14 +240,25 @@ class Decoder:
         self.model_params = ModelParamsTuple(**loaded)
 
     def load_decoding_model(self, saved_model_dir: str):
-        """Loads a saved model (model.json + weights.npz), the experiment
-        flags embedded in it (the lag contexts serving needs) and its
-        input and output widths."""
+        """Loads a saved model, the experiment flags embedded in it (the
+        lag contexts serving needs) and its input and output widths.
+
+        A native directory (model.json + weights.npz) loads as written;
+        a reference TF SavedModel directory (saved_model.pb) is migrated
+        on the fly (models/migrate.py), as in the JAX package."""
         from telluride_decoding_torch.models.brain_model import load_model
         if not saved_model_dir or not isinstance(saved_model_dir, str):
             raise TypeError('Must provide a file name (string) to '
                             'load-model, not a %s.' % type(saved_model_dir))
-        self._decoding_model = load_model(saved_model_dir, self._device)
+        if (not os.path.exists(os.path.join(saved_model_dir, 'model.json'))
+                and os.path.exists(os.path.join(saved_model_dir,
+                                                'saved_model.pb'))):
+            from telluride_decoding_torch.models.migrate import (
+                load_reference_saved_model)
+            self._decoding_model = load_reference_saved_model(
+                saved_model_dir, device=self._device)
+        else:
+            self._decoding_model = load_model(saved_model_dir, self._device)
         model = self._decoding_model
         if model.telluride_metadata:
             self._decoding_model_params = json.loads(model.telluride_metadata)
@@ -612,8 +623,12 @@ def create_decoder(model_tag: str, reduction: str = 'lda', model=None, *,
     """The Decoder subclass for a model directory or tag.
 
     A model directory's model.json decides (a CCA class gets the CCA
-    decoder, any other the linear one); a bare tag is sniffed by name.
-    Reference SavedModel directories raise: their reader is not ported.
+    decoder, any other the linear one). In a reference SavedModel
+    directory the checkpoint's keys decide: one holding ``rot1`` gives
+    the CCA decoder, one holding ``kernel`` the linear one. Otherwise,
+    as for a bare tag, the name decides. As in the JAX package, a
+    positional checkpoint (``variables/<n>``) has neither key, so its
+    directory's name decides, and any error of the sniff is swallowed.
     """
     meta_path = os.path.join(model_tag, 'model.json')
     if os.path.isfile(meta_path):
@@ -625,8 +640,18 @@ def create_decoder(model_tag: str, reduction: str = 'lda', model=None, *,
             return LinearRegressionDecoder(model, reduction=reduction,
                                            device=device)
     if os.path.isfile(os.path.join(model_tag, 'saved_model.pb')):
-        raise ValueError('Reference SavedModel directories are not ported '
-                         'yet: %s.' % model_tag)
+        try:
+            from telluride_decoding_torch.io.tf_checkpoint import (
+                read_tensor_bundle)
+            tensors = read_tensor_bundle(
+                os.path.join(model_tag, 'variables', 'variables'))
+            if any('rot1' in k for k in tensors):
+                return CCADecoder(model, reduction=reduction, device=device)
+            if any('kernel' in k for k in tensors):
+                return LinearRegressionDecoder(model, reduction=reduction,
+                                               device=device)
+        except Exception:  # noqa: BLE001 - the JAX sniff's, kept.
+            pass
     tag = model_tag.lower()
     if 'linear' in tag or 'fullyconnected' in tag:
         return LinearRegressionDecoder(model, reduction=reduction,

@@ -201,8 +201,9 @@ def test_weights_convert_from_flat_numpy(rng):
 
 def test_create_decoder_refuses_unported_models(tmp_path):
     """Linear-regression dirs and tags now get the linear decoder; a
-    reference SavedModel directory (its reader is not ported) and an
-    unknown tag still raise."""
+    reference SavedModel directory with no readable checkpoint and a
+    name that names no family (as in the JAX package) and an unknown tag
+    still raise."""
     meta = tmp_path / 'model.json'
     meta.write_text('{"model_class": "BrainModelLinearRegression"}')
     assert isinstance(infer_decoder.create_decoder(str(tmp_path),
