@@ -4,7 +4,7 @@
 Builds the hand-written CUDA kernels from telluride_decoding_torch/csrc
 and the native TFRecord codec, checks each kernel against its plain
 PyTorch version on the card at the shapes the main paths give it, then
-drives the two main paths once:
+drives the main paths once:
 
   codelab path (69 EEG channels x 37 lags = 2553 columns, 1 audio
   channel x 31 lags, 10 canonical dimensions, 100 Hz): seeded synthetic
@@ -76,7 +76,18 @@ drives the two main paths once:
   keras_metadata.pb, positional variables/) and served as it is by
   ``cli.serve`` (K1 a chunk) beside its native directory, then
   migrated; its weights' bundle read from snappy index blocks; and a
-  CCA SavedModel of ``export_saved_model``, which migration refuses.
+  CCA SavedModel of ``export_saved_model``, which migration refuses;
+
+  SGD families, on the decoding path's corpus at codelab width:
+  ``cli.decoding.main`` with ``--dnn_regressor fullyconnected`` (hidden
+  20-20, batches of 512, torch autograd and Adam), ``dcca`` (two towers
+  trained on the deep-CCA loss, 10 canonical dimensions; its decoder's
+  frame scores through K1 on the towers' outputs) and ``classifier``
+  with mismatch batches, and the classifier on the reference's
+  classifier corpus; the DCCA directory serving phase 4's stream and a
+  stream of the corpus's own subject (K1 a chunk); an SGD cohort of 4
+  subjects x 10 trials through ``cli.cohort.main`` with checkpoints,
+  rerun from them.
 
 Decisions must track the planted switch, served scores must match a
 CPU decode of the same stream with the plain versions, the decoding
@@ -102,7 +113,12 @@ SWEEP_MARGIN. Exported and migrated weights must keep their bits, the
 linear model its predictions, the reference-layout CCA directory must
 serve the native directory's scores and decisions bit for bit, the
 snappy bundle must read as the uncompressed one, and the CCA export
-must be refused with the JAX package's text.
+must be refused with the JAX package's text. The DNN and the DCCA must
+reach d' above 1, the classifier accuracy above 0.9 on the reference's
+corpus, the DCCA's served scores must match a serve on the CPU with the
+plain versions within SERVE_TOL with the same decisions, the streamed
+DNN fit on the card the CPU's within SGD_CARD_TOL, K1 its plain version
+at F1 = F2 = D = 10, and the resumed SGD cohort the first run's CSV.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -197,6 +213,40 @@ CCA_EXPORT_REFUSAL = (
     "'layer_with_weights-1/kernel/.ATTRIBUTES/VARIABLE_VALUE']) — a "
     "DNN/classifier model. Only the deterministic families (linear "
     "regression, CCA) migrate; retrain DNNs natively with cli.decoding.")
+# Phase 14: the SGD families on phase 8's corpus at codelab width, with the
+# decoding driver's flag defaults (hidden 20-20, batch 512) and SGD_EPOCHS
+# epochs at SGD_LR, the JAX suite's DNN rate (tests/test_decoding.py:192):
+# at the default 0.05 the DNN dies on this corpus in both packages (the
+# first epoch's loss 1.2e4 in JAX, then a constant output, d' nan; on the
+# CPU at a quarter of the frames) and the JAX DCCA turns NaN; the card
+# against the CPU over the short copy's
+# streamed DNN fit, its parameters within SGD_CARD_TOL (float32 sums in
+# another order through some 20 Adam steps, TF32 off); the SGD cohort of
+# SGD_COHORT subjects x trials at post context SGD_COHORT_POST (69 x 5 =
+# 345 columns: the per-fold host lag stack at 37 lags would take most of
+# the phase) over the lambdas of SGD_COHORT_LAMBDAS.
+SGD_EPOCHS = 20
+SGD_LR = 0.001
+SGD_DIR = os.path.join(BUILD, 'sgd')
+SGD_CARD_TOL = 1e-3
+SGD_STREAM_BATCH = 256
+SGD_COHORT, SGD_COHORT_POST = (4, 10), 4
+SGD_COHORT_LAMBDAS = '1e-4,1e-2,1'
+SGD_TIMED_STEPS = 20
+# The classifier's gate (accuracy above 0.9) is the reference's CI bar on
+# its own two-input corpus (reference test/brain_model_test.py:813-849,
+# rebuilt in tools/ab_reference.py:539-610), at its flags; on phase 8's
+# corpus a frame's EEG says too little about whether its intensity is
+# the matched one (0.55 on the CPU at 6000 frames a file), so there the
+# accuracy is reported, not gated.
+CLASSIFIER_FLAGS = ['--input_field', 'x1', '--input2_field', 'x2',
+                    '--output_field', 'label', '--attended_field=',
+                    '--dnn_regressor', 'classifier', '--hidden_units', '20',
+                    '--learning_rate', '0.001', '--epoch_count', '30',
+                    '--batch_size', '128', '--shuffle_buffer_size', '0',
+                    '--train_file_pattern', 'trainset',
+                    '--validate_file_pattern', 'heldout',
+                    '--test_file_pattern', 'heldout']
 # S1's chain measurements (s1_bound): a source of their own that includes
 # S1's, built beside the kernel library, not into it.
 S1_CHAIN_SOURCE = os.path.join(REPO, 'chip_smoke_csrc', 's1_chain.cu')
@@ -248,24 +298,31 @@ def interleaved_ms(torch, kernel_fn, plain_fn, reps=20):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def device_ms(torch, fn, symbol, reps=10):
+def device_ms(torch, fn, symbol, reps=10, attempts=2):
     """Mean device time in ms of the kernel whose name holds ``symbol``
     over ``reps`` calls, as torch.profiler records it; None when the
-    profiler saw no such kernel."""
+    profiler saw no such kernel in ``attempts`` sessions (in one whole
+    run a session late in the run saw none of K1's launches, where the
+    same phase run alone did), and then the keys it saw are logged."""
     from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for event in prof.key_averages():
-        if symbol in event.key:
-            total_us += getattr(event, 'device_time_total',
-                                getattr(event, 'cuda_time_total', 0.0))
-            count += event.count
-    return total_us / count / 1e3 if count else None
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for event in prof.key_averages():
+            if symbol in event.key:
+                total_us += getattr(event, 'device_time_total',
+                                    getattr(event, 'cuda_time_total', 0.0))
+                count += event.count
+        if count:
+            return total_us / count / 1e3
+    log('device_ms: no %s among the profiler\'s keys %s'
+        % (symbol, sorted({e.key for e in prof.key_averages()})[:12]))
+    return None
 
 
 def device_busy(torch, fn):
@@ -932,19 +989,25 @@ def run_slice(device, model_dir, channels=IN1_CHANNELS, files=TRAIN_FILES,
     return decisions, summary, stream, times
 
 
+def planted_share(decisions, stream_frames, frame_rate=100.0):
+    """Share of windows on the planted side of the stream's midpoint
+    switch."""
+    switch_s = (stream_frames // 2) / frame_rate
+    return sum(d['attend_speaker1'] != (d['time_s'] >= switch_s)
+               for d in decisions) / len(decisions)
+
+
 def check_decisions(decisions, summary, stream_frames=STREAM_FRAMES,
                     frame_rate=100.0):
     """Fraction of windows on the planted side of the switch; raises
     unless it is above 0.9 and every score is finite."""
-    switch_s = (stream_frames // 2) / frame_rate
     if not decisions or summary.get('windows') != len(decisions):
         raise AssertionError('serve produced %d decisions, summary %s'
                              % (len(decisions), summary))
     scores = [d[k] for d in decisions for k in ('score1', 'score2')]
     if not np.all(np.isfinite(scores)):
         raise AssertionError('non-finite served scores')
-    correct = sum(d['attend_speaker1'] != (d['time_s'] >= switch_s)
-                  for d in decisions) / len(decisions)
+    correct = planted_share(decisions, stream_frames, frame_rate)
     if correct <= 0.9:
         raise AssertionError('decisions track the switch in only %.3f of '
                              'windows' % correct)
@@ -1258,13 +1321,25 @@ def decoding_corpus(data_dir, files=DECODING_FILES, frames=TRAIN_FRAMES,
     return 'trial_%02d' % (files - 1)
 
 
+def read_results(summary_dir):
+    """results.txt's Final_Testing numbers as {name: value}."""
+    results = {}
+    with open(os.path.join(summary_dir, 'results.txt')) as f:
+        for line in f:
+            if line.startswith('Final_Testing/'):
+                name, value = line.split(': ')
+                results[name[len('Final_Testing/'):]] = float(value)
+    return results
+
+
 def run_decoding(kind, data_dir, work_dir, device, test_file,
                  contexts=(PRE, POST, IN2_PRE, IN2_POST), dims=CCA_DIMS,
-                 frame_rate=100):
+                 frame_rate=100, extra=()):
     """One run of ``cli.decoding.main``, at codelab width unless told
-    otherwise (CCA with the streamed fit, or the dense linear fit);
-    returns (results.txt as {name: value}, the StageTimer's report,
-    seconds, model dir)."""
+    otherwise (CCA with the streamed fit, the dense linear fit, or an SGD
+    family with the flags' defaults), with ``extra`` flags; returns
+    (results.txt as {name: value}, the StageTimer's report, seconds,
+    model dir)."""
     import io
     from telluride_decoding_torch.cli import decoding
     pre, post, pre2, post2 = contexts
@@ -1282,10 +1357,13 @@ def run_decoding(kind, data_dir, work_dir, device, test_file,
             summary_dir, '--saved_model_dir', model_dir, '--device',
             str(device), '--dnn_regressor', kind, '--frame_rate',
             str(frame_rate)]
-    if kind == 'cca':
+    if kind in ('cca', 'dcca', 'classifier'):
         argv += ['--input2_field', 'intensity', '--input2_pre_context',
                  str(pre2), '--input2_post_context', str(post2),
-                 '--cca_dimensions', str(dims), '--streaming_fit']
+                 '--cca_dimensions', str(dims)]
+    if kind == 'cca':
+        argv += ['--streaming_fit']
+    argv += list(extra)
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -1295,12 +1373,7 @@ def run_decoding(kind, data_dir, work_dir, device, test_file,
         raise AssertionError('cli.decoding.main returned %d' % rc)
     text = out.getvalue()
     report = text[text.index('run_decoding_experiment timing:'):].strip()
-    results = {}
-    with open(os.path.join(summary_dir, 'results.txt')) as f:
-        for line in f:
-            if line.startswith('Final_Testing/'):
-                name, value = line.split(': ')
-                results[name[len('Final_Testing/'):]] = float(value)
+    results = read_results(summary_dir)
     if not all(np.isfinite(v) for v in results.values()):
         raise AssertionError('%s results.txt has non-finite numbers: %s'
                              % (kind, results))
@@ -1724,9 +1797,10 @@ def phase_sweep(torch, device, smi):
     return launches
 
 
-def cohort_corpus(root, short_root):
-    """The cohort's corpus as TFRecords: COHORT_SUBJECTS subjects
-    (subj00, ...) of COHORT_TRIALS trials, trial t of 3300 - (t mod 5) *
+def cohort_corpus(root, short_root, subjects=COHORT_SUBJECTS,
+                  trials=COHORT_TRIALS):
+    """The cohort's corpus as TFRecords: ``subjects`` subjects
+    (subj00, ...) of ``trials`` trials, trial t of 3300 - (t mod 5) *
     37 frames of 69-channel white EEG and intensity = the EEG's 37-lag
     stack times a seeded TRF plus noise (the geometry of
     examples/make_synthetic_cohort.py; the response is summed lag by lag,
@@ -1743,11 +1817,11 @@ def cohort_corpus(root, short_root):
     shutil.rmtree(root, ignore_errors=True)
     shutil.rmtree(short_root, ignore_errors=True)
     rs, nbytes = [], 0
-    for s in range(COHORT_SUBJECTS):
+    for s in range(subjects):
         rng = np.random.RandomState(100 + s)
         name = 'subj%02d' % s
         os.makedirs(os.path.join(root, name))
-        for t in range(COHORT_TRIALS):
+        for t in range(trials):
             frames = SWEEP_FRAMES - (t % 5) * lags
             eeg = rng.randn(frames, IN1_CHANNELS).astype(np.float32)
             padded = np.concatenate(
@@ -3409,6 +3483,439 @@ def phase_model_files(torch, device, smi):
     return launches
 
 
+def decisions_match(got, want):
+    """The same windows and decisions, scores within SERVE_TOL; returns
+    the largest score difference."""
+    if len(got) != len(want) or not got:
+        raise AssertionError('%d served windows against %d'
+                             % (len(got), len(want)))
+    worst = 0.0
+    for g, w in zip(got, want):
+        if (g['window'], g['attend_speaker1']) != (w['window'],
+                                                   w['attend_speaker1']):
+            raise AssertionError('served decisions differ: %s vs %s'
+                                 % (g, w))
+        worst = max(worst, abs(g['score1'] - w['score1']),
+                    abs(g['score2'] - w['score2']))
+    if worst > SERVE_TOL:
+        raise AssertionError('served scores differ by %g' % worst)
+    return worst
+
+
+def epoch_profile(torch, device, data_dir, test_file, epochs=2):
+    """The DNN's dense fit (hidden 20-20, batches of 512, SGD_LR): the
+    seconds of the host's lag-stacked train split (create_dataset), of a
+    fit of one epoch and of ``epochs`` epochs (host clock, the card
+    synchronised), the steps an epoch, and the busy split of device_busy
+    over a profiled fit of ``epochs`` epochs."""
+    from telluride_decoding_torch.models.brain_model import BrainModelDNN
+    data = brain_data(data_dir, device, None, 100, (PRE, POST, 0, 0),
+                      train_file_pattern='allbut',
+                      validate_file_pattern=test_file,
+                      test_file_pattern=test_file, final_batch_size=512)
+    t0 = time.perf_counter()
+    train = data.create_dataset('train')
+    times = {'train_split_s': time.perf_counter() - t0}
+    model = BrainModelDNN(data.spec_dataset(), [20, 20], device=device)
+    model.compile(learning_rate=SGD_LR)
+    for count in (1, epochs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(train, epochs=count)
+        torch.cuda.synchronize()
+        times['fit_%d_epochs_s' % count] = time.perf_counter() - t0
+    busy = device_busy(torch, lambda: model.fit(train, epochs=epochs))
+    params = model._trainable(0)
+    opt = model._optimizer(params)
+    x = torch.as_tensor(train.all_arrays()[0][:512], device=device)
+    y = torch.as_tensor(train.all_arrays()[2][:512], device=device)
+    times['syncs_a_step'] = host_syncs(
+        torch, lambda: model._step(params, opt, x, x, y, None))
+    return times, -(-train.num_frames // 512), busy
+
+
+def host_syncs(torch, fn):
+    """How often one call of ``fn`` makes the host wait for the card, as
+    torch's sync debug mode reports it (one warning a synchronising
+    call)."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    return sum('synchroniz' in str(w.message) for w in caught)
+
+
+def dcca_step_split(torch, model, x1, x2):
+    """ms of one DCCA step on a batch (SGD_TIMED_STEPS of them, host
+    clock, the card synchronised at the end), and of its parts: the
+    towers' products forward and back, cca_loss forward and back on
+    fixed tower outputs, and its three eigh calls forward alone; the
+    host syncs of a step; the step's busy split under device_busy."""
+    from telluride_decoding_torch.solvers import cca as cca_solver
+    params = model._trainable(0)
+    opt = model._optimizer(params)
+    batch = {'input_1': x1, 'input_2': x2}
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SGD_TIMED_STEPS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / SGD_TIMED_STEPS * 1e3
+
+    def towers():
+        h1 = model._tower(params, 1, x1)
+        h2 = model._tower(params, 2, x2)
+        (h1.sum() + h2.sum()).backward()
+    with torch.no_grad():
+        h = [model._tower(params, i + 1, x) for i, x in enumerate((x1, x2))]
+
+    def loss():
+        a, b = (t.detach().requires_grad_(True) for t in h)
+        cca_solver.cca_loss(a, b, model._cca_dims, model._reg,
+                            model._reg).backward()
+    sym = [torch.eye(model._cca_dims, device=x1.device) + 0.1 * t.T @ t /
+           t.shape[0] for t in h]
+
+    def eighs():
+        for m in (sym[0], sym[1], sym[0] @ sym[1]):
+            torch.linalg.eigh(m)
+    step = lambda: model._step(params, opt, x1, x2, None, None)  # noqa: E731
+    split = dict(step_ms=timed(step), towers_ms=timed(towers),
+                 cca_loss_ms=timed(loss), eigh3_ms=timed(eighs),
+                 syncs_a_step=host_syncs(torch, step))
+    wall, kernel_s, copy_s = device_busy(
+        torch, lambda: [step() for _ in range(SGD_TIMED_STEPS)])
+    split['step_device_ms'] = (None if kernel_s is None else
+                               (kernel_s + copy_s) / SGD_TIMED_STEPS * 1e3)
+    split['step_idle'] = (None if kernel_s is None else
+                          1 - (kernel_s + copy_s) / wall)
+    return split
+
+
+def time_dcca_k1(torch, decoder, attended, unattended):
+    """K1 at the DCCA decoder's shapes, F1 = F2 = D = 10: the test
+    split's frames (windows of one frame, single form) and a served pair
+    of SERVE_ROWS frames, both on the towers' outputs, against the plain
+    version; call, host and device ms beside the bound."""
+    from telluride_decoding_torch.ops.decode_kernel import (
+        f32_plan, fused_cca_decode, fused_cca_decode_reference)
+    model = decoder.decoding_model
+    folded = decoder._pipeline.folded
+    in1, in2, _, _ = attended.all_arrays()
+    keep = (in1.shape[0] // attended.batch_size) * attended.batch_size
+    with torch.no_grad():
+        h1 = model.tower(1, in1[:keep])[:, None, :].contiguous()
+        h2 = model.tower(2, in2[:keep])[:, None, :].contiguous()
+        h2b = model.tower(2, unattended.all_arrays()[1][:SERVE_ROWS])[
+            :, None, :].contiguous()
+    param_bytes = sum(p.numel() * p.element_size() for p in folded)
+    dims = folded.rot1.shape[1]
+    sms = torch.cuda.get_device_properties(h1.device).multi_processor_count
+    timed = {}
+    for name, args in (('frame_scores', (h1, h2)),
+                       ('serve_pair', (h1[:SERVE_ROWS], h2[:SERVE_ROWS],
+                                       h2b))):
+        n = args[0].shape[0]
+        want = torch.stack([fused_cca_decode_reference(folded, args[0], x)
+                            for x in args[1:]])
+        err = require_close(
+            torch, 'fused_cca_decode DCCA %s W=%d F=%d' % (name, n, dims),
+            fused_cca_decode(folded, *args).reshape(want.shape), want,
+            F32_TOL)
+
+        def call():
+            return fused_cca_decode(folded, *args)
+        ms, plain_ms = interleaved_ms(
+            torch, call, lambda: [fused_cca_decode_reference(folded, args[0],
+                                                             x)
+                                  for x in args[1:]])
+        streams = len(args) - 1
+        limit, limited_by = bound(
+            (args[0].numel() + streams * args[1].numel()) * 4 + param_bytes
+            + streams * n * 4, 2 * n * dims * (2 * dims + 2) * streams)
+        timed[name] = dict(windows=n, frames=1, f1=dims, f2=dims, dims=dims,
+                           streams=streams,
+                           cluster=f32_plan(n, 1, dims, dims, sms)[0],
+                           ms=ms, plain_ms=plain_ms,
+                           host_ms=host_ms(torch, call),
+                           device_ms=device_ms(torch, call, F32_SYMBOL),
+                           bound_ms=limit, bound_by=limited_by,
+                           max_abs_err=err)
+    return timed
+
+
+def streamed_fit_card_vs_cpu(device, data_dir, test_file):
+    """The DNN's streamed fit (hidden 20-20, SGD_LR, batches of
+    SGD_STREAM_BATCH) over the short copy's train files, on the card and
+    on the CPU from one initialisation; returns (steps, the largest
+    parameter and loss differences)."""
+    from telluride_decoding_torch.models.brain_model import BrainModelDNN
+    import torch
+    fits = []
+    init = None
+    steps = []
+    for where in (device, 'cpu'):
+        data = brain_data(data_dir, where, None, 100, (PRE, POST, 0, 0),
+                          train_file_pattern='allbut',
+                          validate_file_pattern=test_file,
+                          test_file_pattern=test_file)
+        model = BrainModelDNN(data.spec_dataset(), [20, 20], device=where)
+        model.compile(learning_rate=SGD_LR)
+        if init is None:
+            init = model._init_params(torch.Generator().manual_seed(0))
+        model.set_params(init)
+        step = model._step
+        model._step = lambda *a: steps.append(1) or step(*a)
+        history = model.fit_streaming(data, 'train',
+                                      batch_size=SGD_STREAM_BATCH)
+        fits.append((history['loss'],
+                     {k: v.cpu().numpy() for k, v in model.params.items()}))
+    (card_loss, card), (cpu_loss, cpu) = fits
+    param_err = max(float(np.max(np.abs(card[k] - cpu[k]))) for k in cpu)
+    loss_err = float(np.max(np.abs(np.subtract(card_loss, cpu_loss))))
+    if param_err > SGD_CARD_TOL or loss_err > SGD_CARD_TOL:
+        raise AssertionError('the streamed DNN fit on the card differs from '
+                             'the CPU\'s by %g (parameters) and %g (loss)'
+                             % (param_err, loss_err))
+    return len(steps) // 2, param_err, loss_err
+
+
+def classifier_corpus(directory, n_train=6000, n_test=3000, seed=55):
+    """The reference's classifier corpus: x1 [n, 3], a label that is 1
+    for about 31% of the frames, and x2 = 2 x1[:, :2] where the label is
+    1, noise where it is 0."""
+    from telluride_decoding_torch.data import records
+    rng = np.random.RandomState(seed)
+    shutil.rmtree(directory, ignore_errors=True)
+    os.makedirs(directory)
+    for n, name in ((n_train, 'trainset'), (n_test, 'heldout')):
+        x1 = rng.randn(n, 3).astype(np.float32)
+        label = (rng.randn(n, 1) > 0.5).astype(np.float32)
+        x2 = (label * 2 * x1[:, :2] +
+              (1 - label) * rng.randn(n, 2)).astype(np.float32)
+        records.convert_data_to_tfrecords(
+            {'x1': x1, 'x2': x2, 'label': label},
+            os.path.join(directory, name + '.tfrecords'))
+
+
+def run_classifier(work, device):
+    """cli.decoding.main of the classifier on its reference corpus;
+    returns (results.txt as {name: value}, seconds)."""
+    import io
+    from telluride_decoding_torch.cli import decoding
+    corpus = os.path.join(work, 'classifier_corpus')
+    classifier_corpus(corpus)
+    summary = os.path.join(work, 'classifier_reference_summary')
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        if decoding.main(CLASSIFIER_FLAGS + [
+                '--tfexample_dir', corpus, '--summary_dir', summary,
+                '--device', str(device)]) != 0:
+            raise AssertionError('cli.decoding.main failed')
+    return read_results(summary), time.perf_counter() - t0
+
+
+def run_sgd_cohort(subjects, work, device):
+    """``cli.cohort.main`` of a fullyconnected cohort with per-subject
+    checkpoints, then the same command again, which must restore every
+    subject and write the same CSV; returns (seconds of each run, the
+    cohort CSV)."""
+    import io
+    from telluride_decoding_torch.cli import cohort
+    ckpt = os.path.join(work, 'checkpoints')
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ['--input_field', 'eeg', '--output_field', 'intensity',
+            '--post_context', str(SGD_COHORT_POST), '--dnn_regressor',
+            'fullyconnected', '--epoch_count', '2',
+            '--regularization_list', SGD_COHORT_LAMBDAS,
+            '--sweep_checkpoint_dir', ckpt, '--device', str(device)]
+    for path in subjects.values():
+        argv += ['--subject_dir', path]
+    texts, seconds = [], []
+    for run in range(2):
+        csv = os.path.join(work, 'cohort_%d.csv' % run)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            if cohort.main(argv + ['--cohort_csv_file', csv]) != 0:
+                raise AssertionError('cli.cohort.main failed')
+        seconds.append(time.perf_counter() - t0)
+        with open(csv) as f:
+            texts.append(f.read())
+    if texts[0] != texts[1]:
+        raise AssertionError('the resumed SGD cohort wrote another CSV:\n%s'
+                             '\n%s' % tuple(texts))
+    return seconds, texts[0]
+
+
+def phase_sgd(torch, device, smi):
+    """The SGD families on the card, through cli.decoding.main on phase
+    8's corpus: (a) the DNN at the flag defaults, d' above 1, with its
+    epoch and step times, peak allocation and idle share; (b) the DCCA
+    (10 canonical dimensions), d' above 1, its step split, and its
+    decoder's frame scores over the test file through K1 on the towers'
+    outputs; (c) the match-mismatch classifier on phase 8's corpus
+    (accuracy reported) and on the reference's classifier corpus
+    (accuracy above 0.9);
+    (e) the DCCA directory serving phase 4's stream and a stream of
+    phase 8's subject (K1 a chunk), scores within SERVE_TOL of a serve on
+    the CPU with the plain versions and the same decisions; (g) an SGD
+    cohort with checkpoints, rerun and resumed to the same CSV. Those are
+    the main path, whose launches are counted. Then, not counted: (d)
+    the streamed DNN fit on the card against the CPU, and (f) K1 against
+    its plain version at F1 = F2 = D = 10 (the frame scores and a served
+    pair, cluster 16). Returns (launches, K1's numbers at F = 10)."""
+    from telluride_decoding_torch.cli import cohort as cohort_cli
+    start = time.perf_counter()
+    on_card = str(device).startswith('cuda')
+    work = SGD_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    data_dir = os.path.join(DECODING_DIR, 'records')
+    short_dir = os.path.join(DECODING_DIR, 'records_short')
+    test_file = 'trial_%02d' % (DECODING_FILES - 1)
+    if not os.path.isdir(short_dir):
+        decoding_corpus(data_dir, short_dir=short_dir)
+    codelab_stream = os.path.join(CODELAB_DIR, 'stream.npz')
+    if os.path.isfile(codelab_stream):
+        with np.load(codelab_stream) as data:
+            streams = {'phase 4': (data['eeg'], data['audio1'],
+                                   data['audio2'])}
+    else:
+        streams = {'phase 4': synthetic_recordings(
+            7, IN1_CHANNELS, TRAIN_FILES, TRAIN_FRAMES, STREAM_FRAMES)[1]}
+    # A stream of phase 8's subject: the train files of its corpus come
+    # first from the same generator.
+    streams['phase 8 subject'] = synthetic_recordings(
+        8, IN1_CHANNELS, DECODING_FILES, TRAIN_FRAMES, STREAM_FRAMES)[1]
+    cohort_root = os.path.join(work, 'cohort')
+    cohort_corpus(cohort_root, os.path.join(work, 'cohort_short'),
+                  *SGD_COHORT)
+    subjects = cohort_cli.discover_subjects(cohort_root, [])
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    read_launches = reset_launches()
+    runs, peaks = {}, {}
+    epochs = ['--epoch_count', str(SGD_EPOCHS), '--learning_rate',
+              str(SGD_LR)]
+    for kind, extra in (('fullyconnected', epochs), ('dcca', epochs),
+                        ('classifier', epochs + ['--mismatch_batch'])):
+        runs[kind] = run_decoding(kind, data_dir, work, device, test_file,
+                                  extra=extra)
+        if on_card:
+            peaks[kind] = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+    classifier, classifier_s = run_classifier(work, device)
+    dcca_dir = runs['dcca'][3]
+    correct, windows, decoder, attended = window_accuracy(
+        dcca_dir, data_dir, device, test_file)
+    served, shares, serve_err = {}, {}, {}
+    for name, stream in streams.items():
+        path = os.path.join(work, name.replace(' ', '_'))
+        shutil.copytree(dcca_dir, path)
+        served[name] = serve_stream(path, stream, device, 100)
+        shares[name] = planted_share(served[name][0], stream[0].shape[0])
+    cohort_s, cohort_csv = run_sgd_cohort(subjects, work, device)
+    launches = read_launches()
+    require_launched(launches, ('fused_cca_decode',), 'sgd')
+    for kind in ('fullyconnected', 'dcca'):
+        if not runs[kind][0]['dprime'] > 1.0:
+            raise AssertionError('%s: dprime %s is not above 1'
+                                 % (kind, runs[kind][0]['dprime']))
+    if not classifier['accuracy'] > 0.9:
+        raise AssertionError('classifier: accuracy %s on the reference\'s '
+                             'corpus is not above 0.9'
+                             % classifier['accuracy'])
+    # The served scores and decisions against a serve on the CPU.
+    for name, stream in streams.items():
+        path = os.path.join(work, name.replace(' ', '_') + '_cpu')
+        shutil.copytree(dcca_dir, path)
+        serve_err[name] = decisions_match(
+            served[name][0], serve_stream(path, stream, 'cpu', 100)[0])
+    # Not counted: the streamed fit card against CPU, K1 at F = 10.
+    steps, param_err, loss_err = streamed_fit_card_vs_cpu(
+        device, short_dir, test_file)
+    k1 = {}
+    if on_card:
+        unattended = brain_data(
+            data_dir, device, 'intensity2', 100,
+            (PRE, POST, IN2_PRE, IN2_POST), out='intensity2',
+            test_file_pattern=test_file, final_batch_size=512,
+            shuffle_buffer_size=0).create_dataset('test')
+        k1 = time_dcca_k1(torch, decoder, attended, unattended)
+        fit_times, epoch_steps, busy = epoch_profile(torch, device,
+                                                     data_dir, test_file)
+        # Epochs 2..n of a fit: its upload and first epoch apart.
+        epoch_s = fit_times['fit_2_epochs_s'] - fit_times['fit_1_epochs_s']
+        in1, in2, _, _ = attended.all_arrays()
+        split = dcca_step_split(
+            torch, decoder.decoding_model,
+            decoder._tensor(in1[:512]), decoder._tensor(in2[:512]))
+    for kind, (results, report, seconds, _) in runs.items():
+        log('phase 14 sgd %s (dense fit, %d epochs) on the card: %.2f s; '
+            'results %s%s' % (kind, SGD_EPOCHS, seconds, json.dumps(results),
+                              '; peak allocation %.3f GiB' % peaks[kind]
+                              if kind in peaks else ''))
+        for line in report.splitlines()[1:]:
+            log('phase 14 sgd %s stage %s' % (kind, line.strip()))
+    if on_card:
+        log('phase 14 sgd DNN dense fit alone (hidden 20-20, batch 512, lr '
+            '%g): train split on the host %.3f s; fits of 1 and 2 epochs '
+            '%.3f and %.3f s, so %.3f s an epoch of %d steps, %.3f ms a step '
+            '(host clock), %d host syncs a step; profiled fit of two '
+            'epochs: %s; %s'
+            % (SGD_LR, fit_times['train_split_s'],
+               fit_times['fit_1_epochs_s'], fit_times['fit_2_epochs_s'],
+               epoch_s, epoch_steps, epoch_s / epoch_steps * 1e3,
+               fit_times['syncs_a_step'], fmt_busy(busy), 'on the device %.4f ms a step'
+               % ((busy[1] + busy[2]) / (2 * epoch_steps) * 1e3)
+               if busy[1] is not None else 'device time not measured'))
+        log('phase 14 sgd DCCA step split (batch 512, D 10, ms): %s'
+            % json.dumps(split))
+    log('phase 14 sgd classifier on the reference\'s corpus (6000 + 3000 '
+        'frames, hidden 20, lr 0.001, 30 epochs of batches of 128): %.2f '
+        's; results %s (the gate: accuracy above 0.9)'
+        % (classifier_s, json.dumps(classifier)))
+    log('phase 14 sgd DCCA decoder: test_by_window_means over %s, 100-frame '
+        'windows: the attended stream wins %.3f of %d windows'
+        % (test_file, correct, windows))
+    for name in streams:
+        log('phase 14 sgd DCCA serve of the %s stream: %d windows, %.3f on '
+            'the planted side (the server\'s bar: 0.9), %.1f s, p50 %s ms, '
+            'p95 %s ms; card scores within %.2g of the CPU serve, decisions '
+            'identical'
+            % (name, len(served[name][0]), shares[name], served[name][2],
+               served[name][1].get('latency_p50_ms'),
+               served[name][1].get('latency_p95_ms'), serve_err[name]))
+    log('phase 14 sgd streamed DNN fit, card against CPU: %d steps of %d '
+        'at lr %g, parameters within %.3g, losses within %.3g (limit %g)'
+        % (steps, SGD_STREAM_BATCH, SGD_LR, param_err, loss_err,
+           SGD_CARD_TOL))
+    for name, t in k1.items():
+        log('phase 14 fused_cca_decode float32 DCCA %s W=%d T=1 F=%d (%d '
+            'stream(s), cluster %d): call %.4f ms, host %.4f ms, on the '
+            'device %s, plain %.4f ms, bound %.4f ms (%s), max abs err %.3g'
+            % (name, t['windows'], t['f1'], t['streams'], t['cluster'],
+               t['ms'], t['host_ms'], fmt_ms(t['device_ms']), t['plain_ms'],
+               t['bound_ms'], t['bound_by'], t['max_abs_err']))
+    log('phase 14 sgd cohort (%d subjects x %d trials, post context %d, '
+        'lambdas %s): %.2f s, resumed from its checkpoints in %.2f s with '
+        'the same CSV: %s'
+        % (SGD_COHORT[0], SGD_COHORT[1], SGD_COHORT_POST, SGD_COHORT_LAMBDAS,
+           cohort_s[0], cohort_s[1], cohort_csv.replace('\n', ' ')))
+    log('phase 14 sgd: launches %s; %.1f s in all; %s'
+        % (launches, time.perf_counter() - start, smi))
+    return launches, k1
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3430,16 +3937,20 @@ def main():
     attention, s1 = phase_attention(torch, device, smi)
     raw_ingest = phase_raw_ingest(torch, device, smi)
     model_files = phase_model_files(torch, device, smi)
+    sgd, k1_dcca = phase_sgd(torch, device, smi)
     launches = {name: codelab[name] + kuleuven[name] + decoding[name] +
                 sweep[name] + cohort[name] + attention[name] +
-                raw_ingest[name] + model_files[name] for name in kuleuven}
+                raw_ingest[name] + model_files[name] + sgd[name]
+                for name in kuleuven}
     common = dict(route='cuda', library_ms=None)
     kernels = [
         dict(name='fused_cca_decode',
              source='telluride_decoding_torch/csrc/decode_kernel.cu',
              replaces='telluride_decoding_tpu/ops/decode_kernel.py:123',
              launches=launches['fused_cca_decode'], hmma_in_sass=hmma,
-             f32_frame_scores=k1_frame_scores, **k1, **common),
+             f32_frame_scores=k1_frame_scores,
+             f32_dcca_frame_scores=k1_dcca['frame_scores'],
+             f32_dcca_serve_pair=k1_dcca['serve_pair'], **k1, **common),
         dict(name='lag_stack',
              source='telluride_decoding_torch/csrc/lagstack.cu',
              replaces='telluride_decoding_tpu/ops/lagstack.py:93',

@@ -22,8 +22,13 @@ the cohort's own), parsed by argparse in absl's forms, plus ``--device``
 (``cuda`` by default). ``--num_partitions N --partition_index i`` runs
 one of N independent processes; they join through part files
 (``parallel.multihost``), which either package can read. The SGD
-families raise until their models are ported, and ``TDT_COORDINATOR``
-(the JAX package's collective join) raises until process groups are.
+families (``fullyconnected``, ``classifier``, ``dcca``) have no
+sufficient statistics: every (subject, lambda) cell runs the per-model
+jackknife (``cli.regression.jackknife_one_model``), one training run per
+held-out trial, with a lambda row trained once and tiled where the model
+ignores lambda, and per-subject checkpoints in JAX's file format
+(``--sweep_checkpoint_dir``). ``TDT_COORDINATOR`` (the JAX package's
+collective join) raises until process groups are ported.
 """
 
 from __future__ import annotations
@@ -215,22 +220,146 @@ def iter_cohort(subjects: Dict[str, str], my_flags, prefetch: bool = True):
         stop.set()
 
 
-def _refuse_unported(kind: str) -> None:
-    """The families without a sweep-engine path raise, as the decoding
-    driver does for them."""
-    if kind == 'tf':
+def general_cohort_results(my_flags, subjects: Dict[str, str],
+                           regularization_list,
+                           checkpoint_dir: Optional[str] = None,
+                           device='cuda') -> Dict[str, engine.SweepResult]:
+    """Whole-cohort jackknife of the SGD families (JAX cli/cohort.py:
+    286-401): per (subject, lambda), ``regression.jackknife_one_model``
+    leaves each of the subject's trials out in turn, a training run per
+    trial.
+
+    fullyconnected and classifier models never read the lambda and their
+    training is seeded, so their lambda rows are the same numbers: one
+    row is trained and tiled (``TDT_GENERAL_LAMBDA_DEDUP=0`` retrains
+    every row). Not with mismatch batches, whose stream differs from one
+    row to the next, and not for dcca, whose final CCA reads the lambda.
+
+    With ``checkpoint_dir`` each finished subject's grid is published
+    atomically as ``general_<subject>.npz`` (corr, lambdas, the trial
+    files' basenames, the sweep's parameters), and a rerun restores a
+    subject whose checkpoint matches instead of retraining it; one of
+    other parameters, lambdas or trial files raises, naming what
+    differed.
+    """
+    if my_flags.dnn_regressor == 'tf':
         raise ValueError(
             "tdt-cohort: --dnn_regressor tf is a flag-parity value "
             "with no buildable model (the reference's "
             "create_brain_model has no 'tf' branch either, reference "
             "decoding.py:279-308); use linear/cca or an SGD family "
             "(fullyconnected/classifier/dcca).")
-    if kind not in SWEEP_KINDS:
-        raise ValueError(
-            '--dnn_regressor %s is an SGD model: its cohort jackknife '
-            '(one training run per grid cell) is not ported to '
-            'telluride_decoding_torch yet (ROADMAP.md section 1, item 8, '
-            'SGD models); use linear, linear_with_bias or cca.' % kind)
+    lambdas64 = np.asarray(regularization_list, np.float64)
+    dedup = (my_flags.dnn_regressor in ('fullyconnected', 'classifier')
+             and len(lambdas64) > 1 and not my_flags.mismatch_batch
+             and os.environ.get('TDT_GENERAL_LAMBDA_DEDUP', '1').lower()
+             not in ('0', 'off', 'false'))
+    results = {}
+    for name, data_dir in subjects.items():
+        sub_flags = dataclasses.replace(my_flags, tfexample_dir=data_dir)
+        sub_flags.train_file_pattern = (sub_flags.train_file_pattern
+                                        or 'allbut')
+        params = _sweep_key_params(sub_flags)
+        ckpt = (os.path.join(checkpoint_dir, 'general_%s.npz' % name)
+                if checkpoint_dir else None)
+        bd = regression.get_brain_data_object(sub_flags, device)
+        files = sorted(bd.all_files())
+        if not files:
+            raise ValueError('subject %s: no TFRecord files under %s'
+                             % (name, data_dir))
+        if ckpt and os.path.exists(ckpt):
+            results[name] = _load_general_checkpoint(ckpt, lambdas64, params,
+                                                     files)
+            logging.info('subject %s: restored from %s', name, ckpt)
+            continue
+        corr = np.zeros((len(regularization_list), len(files)))
+        train_rows = 1 if dedup else len(regularization_list)
+        for i, lamb in enumerate(regularization_list[:train_rows]):
+            sub_flags.regularization_lambda = float(lamb)
+            sub_flags.validate_file_pattern = files[0]
+            sub_flags.test_file_pattern = files[0]
+            model = regression.get_brain_model(bd.create_dataset('test'),
+                                               sub_flags, device)
+            corr[i, :] = regression.jackknife_one_model(bd, model, None,
+                                                        sub_flags)
+        if dedup:
+            corr[1:, :] = corr[0, :]
+            logging.info(
+                'subject %s: %s ignores regularization_lambda and '
+                'training is seeded — trained one row, tiled %d lambda '
+                'rows (TDT_GENERAL_LAMBDA_DEDUP=0 to force full '
+                'retraining).', name, my_flags.dnn_regressor,
+                len(regularization_list))
+        results[name] = engine.SweepResult(corr, lambdas64, files)
+        if ckpt:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            # Ends in .npz so np.savez keeps the name; os.replace
+            # publishes it whole, so a killed run leaves no torn
+            # checkpoint for the resume to trust.
+            tmp = ckpt + '.tmp-%d.npz' % os.getpid()
+            np.savez(tmp, corr=corr, lambdas=lambdas64,
+                     files=np.asarray([os.path.basename(f) for f in files]),
+                     params=np.asarray(params))
+            os.replace(tmp, ckpt)
+        logging.info('subject %s: general %s jackknife done (%d fits)',
+                     name, my_flags.dnn_regressor, corr.size)
+    return results
+
+
+# DecodingOptions fields left out of the checkpoint key: output paths,
+# the per-trial selections the jackknife overwrites, the lambda (the
+# grid is kept on its own) and the subject's directory (the trial
+# basenames pin the data), so a sweep resumed from another host restores.
+_SWEEP_KEY_IGNORED = frozenset((
+    'regularization_lambda', 'summary_dir', 'saved_model_dir',
+    'tensorboard_dir', 'test_file_pattern', 'validate_file_pattern',
+    'tfexample_dir', 'debug',
+))
+
+
+def _sweep_key_params(sub_flags) -> List[str]:
+    """The 'key=value' strings that identify an SGD sweep's numbers."""
+    return [kv for kv in sub_flags.experiment_parameters(delimiter=None)
+            if kv.split('=', 1)[0] not in _SWEEP_KEY_IGNORED]
+
+
+def _load_general_checkpoint(path: str, lambdas: np.ndarray,
+                             params: List[str], files: List[str]
+                             ) -> engine.SweepResult:
+    """One subject's checkpoint of the general sweep (JAX
+    cli/cohort.py:423-465), labelled with the subject's current trial
+    paths ``files``; raises, naming what differed, for an older format,
+    other trial files, another lambda grid or other parameters."""
+    remedy = ('— remove the checkpoint or point --sweep_checkpoint_dir '
+              'elsewhere.')
+    with np.load(path, allow_pickle=False) as z:
+        stored_params = [str(p) for p in np.atleast_1d(z['params'])]
+        stored_lambdas = np.asarray(z['lambdas'], np.float64)
+        stored_files = [str(f) for f in np.atleast_1d(z['files'])]
+        if z['params'].ndim == 0 or any(os.sep in f for f in stored_files):
+            raise ValueError(
+                'checkpoint %s was written by an older checkpoint '
+                'format (absolute trial paths / joined parameter '
+                'string) and cannot be safely matched %s' % (path, remedy))
+        basenames = [os.path.basename(f) for f in files]
+        if stored_files != basenames:
+            raise ValueError(
+                'checkpoint %s was written over different trial files '
+                '(stored %s vs present %s) %s'
+                % (path, stored_files, basenames, remedy))
+        if not np.array_equal(stored_lambdas, lambdas):
+            raise ValueError(
+                'checkpoint %s was written by a different sweep: '
+                'lambda grid %s vs requested %s %s'
+                % (path, stored_lambdas.tolist(), lambdas.tolist(), remedy))
+        if stored_params != params:
+            diff = sorted(set(stored_params) ^ set(params))
+            raise ValueError(
+                'checkpoint %s was written by a different sweep; '
+                'mismatched parameters: %s %s'
+                % (path, ', '.join(diff), remedy))
+        return engine.SweepResult(np.asarray(z['corr']), lambdas,
+                                  list(files))
 
 
 def write_cohort_csv(path: str, lambdas, mean, std):
@@ -249,6 +378,33 @@ def _plot_cohort(path: str, title: str, regularization_list, mean, std):
                             mean, std, png_file_name=path)
 
 
+def _sweep_cohort(my_flags, subjects: Dict[str, str], regularization_list,
+                  subject_parallel: bool, streaming: Optional[bool],
+                  device) -> Dict[str, engine.SweepResult]:
+    """The sweep engine's grids of a cohort of a sweep family."""
+    if streaming is None:
+        streaming = os.environ.get('TDT_STREAMING_COHORT', '1').lower() \
+            not in ('0', 'off', 'false')
+    model = 'cca' if my_flags.dnn_regressor == 'cca' else 'ridge'
+    pads = prescan_cohort(subjects, my_flags) if streaming else None
+    if pads is not None:
+        use_raw = regression.device_context_enabled()
+        return engine.multi_subject_sweep(
+            iter_cohort(subjects, my_flags), regularization_list,
+            model=model, dims=my_flags.cca_dimensions,
+            subject_parallel=subject_parallel,
+            context=cohort_context(my_flags) if use_raw else None,
+            pad_files_to=pads[0], pad_frames_to=pads[1], device=device)
+    if streaming:
+        logging.info('cohort prescan unavailable (field specs or '
+                     'unreadable records); loading eagerly.')
+    cohort, context = load_cohort(subjects, my_flags, device)
+    return engine.multi_subject_sweep(
+        cohort, regularization_list, model=model,
+        dims=my_flags.cca_dimensions, subject_parallel=subject_parallel,
+        context=context, device=device)
+
+
 def run_cohort_sweep(my_flags, subjects: Dict[str, str],
                      regularization_list,
                      subject_parallel: bool = True,
@@ -261,41 +417,26 @@ def run_cohort_sweep(my_flags, subjects: Dict[str, str],
     """The whole cohort's sweep; returns ({subject: SweepResult},
     (mean, std) per lambda).
 
-    ``streaming`` (default on; ``--nostreaming_cohort`` or env
-    TDT_STREAMING_COHORT=0 turn it off) feeds the sweep through the
-    prefetching loader with the prescan's pads; results equal eager
-    loading bit for bit. Without a usable prescan (field specs,
-    unreadable records) it loads eagerly. ``checkpoint_dir`` is read
-    only by the SGD families in the JAX package; the sweep families
-    ignore it, as there. ``subject_parallel`` runs serially on one
-    device, as in the JAX package without a mesh.
+    The SGD families go through ``general_cohort_results``, resumable
+    per subject from ``checkpoint_dir``; the sweep families ignore it, as
+    in the JAX package. ``streaming`` (default on;
+    ``--nostreaming_cohort`` or env TDT_STREAMING_COHORT=0 turn it off)
+    feeds the sweep through the prefetching loader with the prescan's
+    pads; results equal eager loading bit for bit. Without a usable
+    prescan (field specs, unreadable records) it loads eagerly.
+    ``subject_parallel`` runs serially on one device, as in the JAX
+    package without a mesh.
     """
-    del checkpoint_dir
-    _refuse_unported(my_flags.dnn_regressor)
     device = device_policy.resolve(device)
-    if streaming is None:
-        streaming = os.environ.get('TDT_STREAMING_COHORT', '1').lower() \
-            not in ('0', 'off', 'false')
-    model = 'cca' if my_flags.dnn_regressor == 'cca' else 'ridge'
-    pads = prescan_cohort(subjects, my_flags) if streaming else None
-    if pads is not None:
-        use_raw = regression.device_context_enabled()
-        results = engine.multi_subject_sweep(
-            iter_cohort(subjects, my_flags), regularization_list,
-            model=model, dims=my_flags.cca_dimensions,
-            subject_parallel=subject_parallel,
-            context=cohort_context(my_flags) if use_raw else None,
-            pad_files_to=pads[0], pad_frames_to=pads[1], device=device)
+    if my_flags.dnn_regressor not in SWEEP_KINDS:
+        # No sufficient statistics: a training run per grid cell.
+        results = general_cohort_results(my_flags, subjects,
+                                         regularization_list,
+                                         checkpoint_dir=checkpoint_dir,
+                                         device=device)
     else:
-        if streaming:
-            logging.info('cohort prescan unavailable (field specs or '
-                         'unreadable records); loading eagerly.')
-        cohort, context = load_cohort(subjects, my_flags, device)
-        results = engine.multi_subject_sweep(
-            cohort, regularization_list, model=model,
-            dims=my_flags.cca_dimensions,
-            subject_parallel=subject_parallel, context=context,
-            device=device)
+        results = _sweep_cohort(my_flags, subjects, regularization_list,
+                                subject_parallel, streaming, device)
     mean, std = engine.cohort_summary(results)
     if results_csv_file:
         # Per-subject rows in the reference csv_util layout (lambda, then

@@ -12,11 +12,14 @@ argparse in absl's forms (``--flag=value``, ``--flag value``,
 ``--flag`` / ``--noflag`` for booleans), plus ``--device`` (``cuda`` by
 default, ``cpu`` for the plain versions of the kernels). It fits a
 ``linear``, ``linear_with_bias`` or ``cca`` model from TFRecords (the
-streamed fit lag-stacks each file on the card with kernel K2), evaluates
-it on the test split, trains the LDA reducer on attended against mixed-up
-test batches and writes ``results.txt``, ``model.json`` +
-``weights.npz`` and ``decoder_model.json`` as the JAX driver does, so
-either package loads the other's artifacts.
+streamed fit lag-stacks each file on the card with kernel K2), or trains
+a ``fullyconnected``, ``classifier`` or ``dcca`` model by SGD (torch
+autograd and Adam), evaluates it on the test split, trains the LDA
+reducer on attended against mixed-up test batches (a DCCA's frame scores
+go through kernel K1 on its towers' outputs; the classifier has no LDA
+stage) and writes ``results.txt``, ``model.json`` + ``weights.npz`` and
+``decoder_model.json`` as the JAX driver does, so either package loads
+the other's artifacts.
 """
 
 from __future__ import annotations
@@ -35,11 +38,9 @@ from telluride_decoding_torch import device as device_policy
 from telluride_decoding_torch.data import brain_data, records
 from telluride_decoding_torch.decode import infer_decoder
 from telluride_decoding_torch.models.brain_model import (
-    BrainModelLinearRegression)
-from telluride_decoding_torch.models.cca import BrainModelCCA
+    BrainModelClassifier, BrainModelDNN, BrainModelLinearRegression)
+from telluride_decoding_torch.models.cca import BrainModelCCA, BrainModelDCCA
 from telluride_decoding_torch.utils import profiling
-
-SGD_KINDS = ('fullyconnected', 'classifier', 'dcca')
 
 
 @dataclasses.dataclass
@@ -262,18 +263,31 @@ def create_brain_model(model_flags: DecodingOptions, input_dataset, *,
         raise TypeError('Model_flags must be a DecodingOptions, not a %s' %
                         type(model_flags))
     kind = model_flags.dnn_regressor
-    if kind in SGD_KINDS:
-        raise ValueError(
-            '--dnn_regressor %s is an SGD model, not ported to '
-            'telluride_decoding_torch yet (ROADMAP.md section 1, item 8, '
-            'SGD models); use linear, linear_with_bias or cca.' % kind)
-    if kind in ('linear', 'linear_with_bias'):
+    hidden_units = ([int(x) for x in model_flags.hidden_units.split('-')]
+                    if model_flags.hidden_units else [])
+    if kind == 'fullyconnected':
+        bm = BrainModelDNN(input_dataset, hidden_units,
+                           tensorboard_dir=model_flags.tensorboard_dir,
+                           dropout=model_flags.dropout,
+                           batch_norm=model_flags.batch_norm, device=device)
+    elif kind == 'classifier':
+        bm = BrainModelClassifier(
+            input_dataset, model_flags.hidden_units,
+            tensorboard_dir=model_flags.tensorboard_dir, device=device)
+    elif kind in ('linear', 'linear_with_bias'):
         bm = BrainModelLinearRegression(
             input_dataset, model_flags.regularization_lambda,
             tensorboard_dir=model_flags.tensorboard_dir, device=device)
     elif kind == 'cca':
         bm = BrainModelCCA(
             input_dataset, cca_dims=model_flags.cca_dimensions,
+            regularization_lambda=model_flags.regularization_lambda,
+            tensorboard_dir=model_flags.tensorboard_dir, device=device)
+    elif kind == 'dcca':
+        # The flag reaches the final CCA solve, as in the cca branch.
+        bm = BrainModelDCCA(
+            input_dataset, cca_dims=model_flags.cca_dimensions,
+            hidden_units=hidden_units,
             regularization_lambda=model_flags.regularization_lambda,
             tensorboard_dir=model_flags.tensorboard_dir, device=device)
     elif kind == 'tf':
@@ -305,14 +319,18 @@ def _auto_streaming_bytes() -> int:
 
 
 def train_and_test(my_flags: DecodingOptions, test_brain_data,
-                   test_brain_model, epochs: int = 1
+                   test_brain_model, epochs: int = 1, fit_seed: int = 0
                    ) -> Tuple[Dict[str, float], Dict[str, float]]:
     """Fits on the train split and evaluates on the test split.
 
     The fit streams the train files (per-file moments, lag stack on the
-    device) with --streaming_fit, or on its own when the lag-stacked
-    train split would exceed TDT_STREAMING_AUTO_BYTES; the reference
-    protocol and mismatch batches need the dense fit.
+    device) with --streaming_fit, or, for the deterministic families, on
+    its own when the lag-stacked train split would exceed
+    TDT_STREAMING_AUTO_BYTES; the reference protocol and mismatch
+    batches need the dense fit. The SGD families get --batch_size and
+    ``fit_seed`` (their initialisation and batch order), and are never
+    switched to the streamed fit on their own: it draws another batch
+    stream than the dense fit.
     """
     if not isinstance(test_brain_data, brain_data.BrainData):
         raise TypeError('test_brain_data must be a BrainData object, not a '
@@ -327,7 +345,10 @@ def train_and_test(my_flags: DecodingOptions, test_brain_data,
                     not mismatch and my_flags.protocol != 'reference' and
                     isinstance(test_brain_data, brain_data.TFExampleData))
     want_streaming = my_flags.streaming_fit
-    if streaming_ok and not want_streaming:
+    sgd_model = isinstance(test_brain_model, (BrainModelDNN,
+                                              BrainModelClassifier,
+                                              BrainModelDCCA))
+    if streaming_ok and not want_streaming and not sgd_model:
         auto_bytes = _auto_streaming_bytes()
         if auto_bytes > 0:
             try:
@@ -341,9 +362,11 @@ def train_and_test(my_flags: DecodingOptions, test_brain_data,
                     '(pass TDT_STREAMING_AUTO_BYTES=0 to disable).',
                     estimated / 2**30, auto_bytes / 2**30)
                 want_streaming = True
+    fit_kwargs = (dict(batch_size=my_flags.batch_size, seed=fit_seed)
+                  if sgd_model else {})
     if want_streaming and streaming_ok:
         train_results = test_brain_model.fit_streaming(
-            test_brain_data, 'train', epochs=epochs)
+            test_brain_data, 'train', epochs=epochs, **fit_kwargs)
     else:
         if my_flags.streaming_fit:
             reason = ('model %s has no streaming fit'
@@ -360,7 +383,8 @@ def train_and_test(my_flags: DecodingOptions, test_brain_data,
                             reason)
         train_dataset = test_brain_data.create_dataset(
             'train', mismatch_batch=mismatch)
-        train_results = test_brain_model.fit(train_dataset, epochs=epochs)
+        train_results = test_brain_model.fit(train_dataset, epochs=epochs,
+                                             **fit_kwargs)
     test_dataset = test_brain_data.create_dataset(
         'test', mismatch_batch=mismatch)
     test_results = test_brain_model.evaluate(test_dataset)
@@ -510,9 +534,14 @@ def run_decoding_experiment(my_flags: DecodingOptions, device='cuda'
     test_model.add_metadata(dataclasses.asdict(my_flags),
                             dataset=some_dataset)
 
-    with timer.stage('train_lda'):
-        dprime, final_decoder = train_lda_model(test_brain_data, test_model,
-                                                my_flags, device=device)
+    if my_flags.dnn_regressor == 'classifier':
+        # The classifier already outputs a decision probability: no
+        # correlation -> LDA stage, as in the JAX driver.
+        dprime, final_decoder = 0.0, None
+    else:
+        with timer.stage('train_lda'):
+            dprime, final_decoder = train_lda_model(
+                test_brain_data, test_model, my_flags, device=device)
 
     print('train_and_test got these results: %s and test %s' %
           (train_results, test_results))
@@ -532,9 +561,10 @@ def run_decoding_experiment(my_flags: DecodingOptions, device='cuda'
     if my_flags.saved_model_dir:
         with timer.stage('save_artifacts'):
             test_model.save(my_flags.saved_model_dir)
-            final_decoder.save_parameters(
-                os.path.join(my_flags.saved_model_dir,
-                             'decoder_model.json'))
+            if final_decoder is not None:
+                final_decoder.save_parameters(
+                    os.path.join(my_flags.saved_model_dir,
+                                 'decoder_model.json'))
         print('Wrote saved model to %s.' % my_flags.saved_model_dir)
     print(timer.report())
     return train_results, test_results, dprime

@@ -11,11 +11,13 @@ default). For ``linear``, ``linear_with_bias`` and ``cca`` models the
 whole (lambda x held-out file) grid runs through ``sweep.engine`` from
 per-file moments, each file lag-stacked on the card by kernel K2
 (``TDT_DEVICE_CONTEXT=0`` stacks on the host instead). ``--protocol
-reference`` routes each (lambda, file) cell through
-``cli.decoding.train_and_test`` (``jackknife_one_model``). The driver
-writes the JAX driver's per-lambda ``results.txt`` under
-``reglambda_{lambda}_test_{file}``, the optional CSV, and returns
-{lambda: (mean, std)}. SGD models raise, as in the decoding driver.
+reference`` and the SGD families (``fullyconnected``, ``classifier``,
+``dcca``) route each (lambda, file) cell through
+``cli.decoding.train_and_test`` (``jackknife_one_model``): one training
+run a cell, the same model object refit from its last parameters, as in
+the JAX package. The driver writes the JAX driver's per-lambda
+``results.txt`` under ``reglambda_{lambda}_test_{file}``, the optional
+CSV, and returns {lambda: (mean, std)}.
 """
 
 from __future__ import annotations
@@ -114,7 +116,8 @@ def jackknife_one_model(test_brain_data, test_brain_model, model_dir,
                         trial_number: int = 0, summary_file=None,
                         test_file: Optional[str] = None) -> List[float]:
     """Leave-one-out loop through train_and_test, one result per
-    held-out file (the per-cell route of ``--protocol reference``)."""
+    held-out file (the per-cell route of ``--protocol reference`` and of
+    the SGD families)."""
     if not isinstance(my_flags, decoding.DecodingOptions):
         raise TypeError('Jackknife_one_model needs a DecodingOptions '
                         'object, not %s.' % type(my_flags))

@@ -4,8 +4,10 @@ decode/infer_decoder.py:38-742).
 The per-window serving path of a CCA model with the LDA reduction
 (``infer_one``/``infer_pair``) is one launch of kernel K1 per call:
 rotate both inputs, form the normalized correlation, project through the
-LDA, one score per frame (windows of T = 1). ``infer_pair`` scores both
-audio streams against one read of the brain window. ``frame_scores``
+LDA, one score per frame (windows of T = 1). For a deep CCA model K1 runs
+on the towers' outputs (plain matrix products in torch first), with the
+model's final CCA as its rotations. ``infer_pair`` scores both audio
+streams against one read of the brain window. ``frame_scores``
 scores a whole test split in one ``infer_one`` call, so its K1 launch
 covers every frame of the split. The other reductions, and the linear
 regression decoder, run as plain torch, as ``_reduce`` does in the JAX
@@ -81,8 +83,9 @@ def _reduce(correlations: torch.Tensor, reduction: str,
 class _Pipeline(collections.namedtuple('_Pipeline',
                                        ['folded', 'correlate_reduce'])):
     """What a decoder serves with, built from the current statistics:
-    ``folded`` (kernel K1's parameters) when the fused decode applies,
-    else None and ``correlate_reduce(r1, r2)`` in plain torch."""
+    ``folded`` (kernel K1's parameters, which rotate the kernel inputs of
+    ``Decoder._kernel_inputs``) when the fused decode applies, else None
+    and ``correlate_reduce(r1, r2)`` in plain torch."""
 
 
 class PendingScores:
@@ -311,6 +314,11 @@ class Decoder:
         del mean_x, mean_y, power, lda_w, lda_slope, lda_intercept
         return None
 
+    def _kernel_inputs(self, x1: torch.Tensor, x2s: List[torch.Tensor]
+                       ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """What kernel K1 rotates: the inputs themselves."""
+        return x1, x2s
+
     def _tensor(self, value) -> torch.Tensor:
         """A float32 input on this decoder's device."""
         return device_policy.as_tensor(value, self._device,
@@ -358,6 +366,7 @@ class Decoder:
         folded, correlate_reduce = self._pipeline
         if folded is not None:
             # Kernel K1, per-frame scores: windows of one frame.
+            x1, x2s = self._kernel_inputs(x1, x2s)
             scores = fused_cca_decode(
                 folded, x1[:, None, :], x2s[0][:, None, :],
                 x2s[1][:, None, :] if len(x2s) > 1 else None)
@@ -609,13 +618,28 @@ class CCADecoder(Decoder):
         return predictions[:, :half], predictions[:, half:]
 
     def _fold(self, mean_x, mean_y, power, lda_w, lda_slope, lda_intercept):
+        """The model's CCA rotations folded with the statistics and LDA.
+
+        For a CCA model they rotate input_1 and input_2. For a deep CCA
+        model (one with towers) mean1, mean2, rot1 and rot2
+        are the final CCA of the towers' outputs [N, cca_dims], which
+        ``_kernel_inputs`` hands to K1 in place of the inputs: the JAX
+        decode's apply -> correlate_reduce, one function."""
         params = getattr(self._decoding_model, 'params', None)
         if params is None:
             return None
         return fold_decode_params(dict(
-            params, corr_mean_x=mean_x, corr_mean_y=mean_y,
-            corr_power=power, lda_w=lda_w, lda_slope=lda_slope,
-            lda_intercept=lda_intercept))
+            {k: params[k] for k in ('mean1', 'mean2', 'rot1', 'rot2')},
+            corr_mean_x=mean_x, corr_mean_y=mean_y, corr_power=power,
+            lda_w=lda_w, lda_slope=lda_slope, lda_intercept=lda_intercept))
+
+    def _kernel_inputs(self, x1, x2s):
+        """The inputs, or a deep CCA model's tower outputs (h1 of input_1,
+        h2 of each input_2 stream)."""
+        tower = getattr(self._decoding_model, 'tower', None)
+        if tower is None:
+            return x1, x2s
+        return tower(1, x1), [tower(2, x2) for x2 in x2s]
 
 
 def create_decoder(model_tag: str, reduction: str = 'lda', model=None, *,

@@ -1,7 +1,6 @@
 """Exports trained models as Keras-loadable HDF5 files, without TensorFlow.
 
-Port of telluride_decoding_tpu/io/keras_h5.py for the deterministic
-families. The reference saves with ``model.save(saved_model_dir)`` and
+Port of telluride_decoding_tpu/io/keras_h5.py. The reference saves with ``model.save(saved_model_dir)`` and
 loads through ``tf.keras.models.load_model`` (reference
 decoding.py:571-576, infer_decoder.py:250-286), which also takes a Keras
 HDF5 file. This module writes that file by hand (h5py + JSON), as a
@@ -12,10 +11,16 @@ objects:
   * CCA:     Dense(rot1, bias=-mean1 @ rot1)(input_1) ++
              Dense(rot2, bias=-mean2 @ rot2)(input_2)       (exact:
              (x - mean) @ rot == x @ rot - mean @ rot)
+  * DNN:     input_1 -> Dense(relu) ... -> Dense(linear); with batch
+             norm, Dense(linear) -> BatchNormalization -> Activation(relu)
+  * classifier: Concatenate(input_1, input_2) -> Dense(relu) ... ->
+             Dense(sigmoid)
+  * DCCA:    each tower's Dense(relu) stack with a linear last layer, then
+             the final CCA folded into one more Dense, as for CCA; the
+             towers interleaved level by level; Concatenate
 
 The graphs take the reference serving feed ({'input_1', 'input_2'};
-input_2 stays in the graph where a family ignores it). The DNN,
-classifier and DCCA graphs of the JAX module come with those models.
+input_2 stays in the graph where a family ignores it).
 
 Every weight is written from numpy float32 read off the model's buffers
 (on the card or not), and the CCA's folded bias is computed in numpy
@@ -187,20 +192,136 @@ def _spec_cca(model) -> _GraphSpec:
     return spec
 
 
+def _layer_count(params, prefix: str = '') -> int:
+    """Dense layers of a stack whose weights are ``{prefix}{i}/w``."""
+    count = 0
+    while '%s%d/w' % (prefix, count) in params:
+        count += 1
+    return count
+
+
+def _spec_dcca(model) -> _GraphSpec:
+    """Each tower a ReLU Dense stack with a linear last Dense, then the
+    final CCA ``(h - mean) @ rot`` folded into one more Dense, as in
+    _spec_cca; Concatenate joins the canonical outputs."""
+    p = model.params
+    spec = _GraphSpec('model')
+    spec.add_input('input_1', p['tower1/0/w'].shape[0])
+    spec.add_input('input_2', p['tower2/0/w'].shape[0])
+
+    def tower(index):
+        """[(config, weights)] of one tower, ending in the folded CCA."""
+        out = []
+        prev = 'input_%d' % index
+        n = _layer_count(p, 'tower%d/' % index)
+        for i in range(n):
+            w = _float32(p['tower%d/%d/w' % (index, i)])
+            b = _float32(p['tower%d/%d/b' % (index, i)]).reshape(-1)
+            name = 'dense_t%d_%d' % (index, i)
+            out.append((_dense_layer(name, w.shape[1],
+                                     'linear' if i == n - 1 else 'relu',
+                                     prev),
+                        [('kernel', w), ('bias', b)]))
+            prev = name
+        rot = _float32(p['rot%d' % index])
+        mean = _float32(p['mean%d' % index]).reshape(-1)
+        out.append((_dense_layer('rot%d' % index, rot.shape[1], 'linear',
+                                 prev),
+                    [('kernel', rot), ('bias', -mean @ rot)]))
+        return out
+
+    # Keras's topological (depth) order: the towers interleaved level by
+    # level, as the legacy loader numbers layer_with_weights-<k>.
+    for (c1, w1), (c2, w2) in zip(tower(1), tower(2)):
+        spec.add_layer(c1, w1)
+        spec.add_layer(c2, w2)
+    spec.add_layer(_concat_layer('concatenate', ['rot1', 'rot2']))
+    spec.output_layer = 'concatenate'
+    return spec
+
+
+def _spec_dnn(model) -> _GraphSpec:
+    p = model.params
+    n_layers = _layer_count(p, 'layers/')
+    batch_norm = 'bn/0/gamma' in p
+    spec = _GraphSpec('model')
+    spec.add_input('input_1', p['layers/0/w'].shape[0])
+    spec.add_input('input_2', 1)
+    prev = 'input_1'
+    for i in range(n_layers):
+        w = _float32(p['layers/%d/w' % i])
+        b = _float32(p['layers/%d/b' % i]).reshape(-1)
+        last = i == n_layers - 1
+        name = 'dense_%d' % i
+        if batch_norm and not last:
+            # dense -> batch norm -> relu: the Dense stays linear and the
+            # relu gets an Activation layer of its own.
+            spec.add_layer(_dense_layer(name, w.shape[1], 'linear', prev),
+                           [('kernel', w), ('bias', b)])
+            bn_name = 'batch_normalization_%d' % i
+            spec.add_layer(
+                _batchnorm_layer(bn_name, name),
+                [(keras_name, _float32(p['bn/%d/%s' % (i, ours)]))
+                 for keras_name, ours in (('gamma', 'gamma'),
+                                          ('beta', 'beta'),
+                                          ('moving_mean', 'mean'),
+                                          ('moving_variance', 'var'))])
+            act_name = 'activation_%d' % i
+            spec.add_layer({'class_name': 'Activation',
+                            'config': {'name': act_name, 'trainable': True,
+                                       'dtype': 'float32',
+                                       'activation': 'relu'},
+                            'name': act_name,
+                            'inbound_nodes': [[[bn_name, 0, 0, {}]]]})
+            prev = act_name
+        else:
+            spec.add_layer(_dense_layer(name, w.shape[1],
+                                        'linear' if last else 'relu', prev),
+                           [('kernel', w), ('bias', b)])
+            prev = name
+    spec.output_layer = prev
+    return spec
+
+
+def _spec_classifier(model) -> _GraphSpec:
+    p = model.params
+    in2 = model._input2_width
+    spec = _GraphSpec('model')
+    spec.add_input('input_1', p['0/w'].shape[0] - in2)
+    spec.add_input('input_2', in2)
+    spec.add_layer(_concat_layer('concatenate', ['input_1', 'input_2']))
+    prev = 'concatenate'
+    n_layers = _layer_count(p)
+    for i in range(n_layers):
+        w = _float32(p['%d/w' % i])
+        b = _float32(p['%d/b' % i]).reshape(-1)
+        name = 'dense_%d' % i
+        spec.add_layer(_dense_layer(name, w.shape[1],
+                                    'sigmoid' if i == n_layers - 1
+                                    else 'relu', prev),
+                       [('kernel', w), ('bias', b)])
+        prev = name
+    spec.output_layer = prev
+    return spec
+
+
 def _build_spec(model) -> _GraphSpec:
     kind = type(model).__name__
-    if kind == 'BrainModelLinearRegression':
-        return _spec_linear(model)
-    if kind == 'BrainModelCCA':
-        return _spec_cca(model)
-    raise ValueError('No Keras H5 export for model type %s.' % kind)
+    specs = {'BrainModelLinearRegression': _spec_linear,
+             'BrainModelCCA': _spec_cca, 'BrainModelDCCA': _spec_dcca,
+             'BrainModelDNN': _spec_dnn,
+             'BrainModelClassifier': _spec_classifier}
+    if kind not in specs:
+        raise ValueError('No Keras H5 export for model type %s.' % kind)
+    return specs[kind](model)
 
 
 def export_keras_h5(model, path: str) -> None:
     """Writes ``model`` as a Keras HDF5 file that
     ``tf.keras.models.load_model`` (legacy tf_keras) loads with no custom
     objects, and its telluride strings to a ``.telluride.json`` sidecar.
-    Needs h5py."""
+    Every persistable family exports (linear, CCA, DNN, classifier,
+    DCCA). Needs h5py."""
     try:
         import h5py
     except ImportError as error:

@@ -7,8 +7,9 @@ torch.matmul with TF32 off (telluride_decoding_torch.device).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -50,6 +51,22 @@ def zeros_moments(dx: int, dy: int, device) -> MomentStats:
     def z(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
     return MomentStats(z(), z(dx), z(dy), z(dx, dx), z(dy, dy), z(dx, dy))
+
+
+def pad_to_bucket(arrays: Sequence[np.ndarray], n: int, bucket: int
+                  ) -> Tuple[List[np.ndarray], np.ndarray]:
+    """Zero-pads host [N_i, D] arrays to the next multiple of ``bucket``
+    rows (telluride_decoding_tpu/ops/covariance.py:71-91); returns the
+    float32 padded arrays and the [padded] 0/1 mask of the first ``n``
+    rows. Files of similar length then share one shape, so the caching
+    allocator reuses their blocks; the mask keeps masked sums exact."""
+    padded_n = -(-max(n, 1) // bucket) * bucket
+    out = []
+    for a in arrays:
+        p = np.zeros((padded_n, a.shape[1]), np.float32)
+        p[:n] = np.asarray(a[:n], np.float32)
+        out.append(p)
+    return out, (np.arange(padded_n) < n).astype(np.float32)
 
 
 def _chunk_moments(x: torch.Tensor, y: torch.Tensor,

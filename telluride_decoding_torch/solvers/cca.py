@@ -4,6 +4,9 @@ Covariances come from MomentStats with the reference's normalization;
 whitening uses eigh of the symmetrized covariances with tiny eigen-dims
 zeroed; the canonical directions come from one SVD. Float32 throughout
 with TF32 off, as the JAX package runs it at Precision.HIGHEST.
+``cca_loss`` is the deep-CCA objective, differentiable through
+``torch.linalg.eigh`` (on CUDA each eigh checks its result on the host,
+so a call synchronises with the card three times).
 """
 
 from __future__ import annotations
@@ -87,3 +90,34 @@ def calculate_cca_parameters(x: torch.Tensor, y: torch.Tensor, dim: int,
     else:
         stats = moments_from_arrays(x, y, want_syy=True)
     return solve_cca_from_moments(stats, dim, regularization, eps_eig)
+
+
+def apply_cca(solution: CcaSolution, x: torch.Tensor,
+              y: torch.Tensor) -> torch.Tensor:
+    """Rotates two inputs and concatenates them: [N, 2 dim]."""
+    rx = (x - solution.mean_x) @ solution.rot_x
+    ry = (y - solution.mean_y) @ solution.rot_y
+    return torch.cat([rx, ry], dim=1)
+
+
+def cca_loss(x: torch.Tensor, y: torch.Tensor, dim: int,
+             rcov1: float, rcov2: float,
+             eps_eig: float = 1e-12) -> torch.Tensor:
+    """Differentiable sum of the top ``dim`` canonical correlations of a
+    batch (telluride_decoding_tpu/solvers/cca.py:134-159): centred
+    inputs, covariances over N - 1 with ``rcov`` ridges, whitening by
+    eigh and the square roots of the top eigenvalues of T T^T. Negate it
+    for a loss."""
+    x = x - torch.mean(x, dim=0, keepdim=True)
+    y = y - torch.mean(y, dim=0, keepdim=True)
+    batch_norm = x.shape[0] - 1.0
+    eye_x = torch.eye(x.shape[1], dtype=x.dtype, device=x.device)
+    eye_y = torch.eye(y.shape[1], dtype=y.dtype, device=y.device)
+    cov_xx = x.T @ x / batch_norm + rcov1 * eye_x
+    cov_yy = y.T @ y / batch_norm + rcov2 * eye_y
+    cov_xy = x.T @ y / batch_norm
+    t = _inv_sqrt_psd(cov_xx, eps_eig) @ cov_xy @ _inv_sqrt_psd(cov_yy,
+                                                                eps_eig)
+    # Ascending eigenvalues of T T^T: the squared canonical correlations.
+    vals = torch.linalg.eigh(t @ t.T)[0]
+    return torch.sum(torch.sqrt(torch.clamp(vals[-dim:], min=0.0)))

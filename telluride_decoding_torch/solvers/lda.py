@@ -46,7 +46,16 @@ def _lda_fit(x: torch.Tensor, onehot: torch.Tensor):
     eye = torch.eye(d, dtype=x.dtype, device=x.device)
     # Jitter keeps the Cholesky factorizable for near-singular scatter.
     jitter = 1e-6 * (torch.trace(sw) / d + 1e-30)
-    chol = torch.linalg.cholesky(sw + jitter * eye)
+    chol, info = torch.linalg.cholesky_ex(sw + jitter * eye)
+    if int(info) or not bool(torch.isfinite(chol).all() and
+                             torch.isfinite(sb).all()):
+        # JAX's cholesky gives NaN where it fails and the NaN runs through
+        # the solves and eigh into the projection (a driver then reports
+        # d' nan, as for a regressor whose output is constant); torch's
+        # eigh would raise on it.
+        nan = torch.full((d, d), float('nan'), dtype=x.dtype,
+                         device=x.device)
+        return nan, nan[0], means
     # L M L^T = Sb -> M = L^-1 Sb L^-T.
     li_sb = torch.linalg.solve_triangular(chol, sb, upper=False)
     m = torch.linalg.solve_triangular(chol, li_sb.T, upper=False).T

@@ -720,18 +720,6 @@ def test_main_cca_family(tmp_path, rng, capsys):
                                atol=R_TOL)
 
 
-@pytest.mark.parametrize('kind', ['fullyconnected', 'classifier', 'dcca'])
-def test_sgd_families_raise(tmp_path, rng, kind):
-    root = write_cohort_tree(tmp_path, rng, num_subjects=1)
-    with pytest.raises(ValueError, match='SGD model.*not ported'):
-        cohort.run_cohort_sweep(
-            _options(decoding, **dict(LINEAR, dnn_regressor=kind)),
-            cohort.discover_subjects(root, []), [1e-3], device='cpu')
-    with pytest.raises(ValueError, match='SGD model'):
-        cohort.main(['--cohort_dir', root, '--dnn_regressor', kind,
-                     '--device', 'cpu'])
-
-
 def test_tf_family_raises_the_jax_message(tmp_path, rng):
     root = write_cohort_tree(tmp_path, rng, num_subjects=1)
     subjects = cohort.discover_subjects(root, [])

@@ -12,7 +12,10 @@ bf16 rtol 1e-3 / atol 1e-3, since both sides read the same bf16 data and
 rotations and accumulate in float32 (the tensor cores' products of two
 bf16 values are exact in float32; only the order of the sums differs). The audio envelope: atol 1e-4, the
 JAX suite's bound for its kernel (float32 window sums in another order).
-The SSD update (S1): atol 1e-4 on z, eta and the new state, against the
+The deep CCA's decoder: rtol 1e-4 / atol 1e-4, K1's float32 bound,
+against the plain decode on the CPU; the DNN's streamed fit, card
+against CPU, 1e-3 on parameters and losses after some 20 Adam steps at
+lr 0.05. The SSD update (S1): atol 1e-4 on z, eta and the new state, against the
 plain version on the card from the same state (every operation rounded
 alike; only the four window sums run in another order, and twenty EM
 rounds of Newton steps amplify that). S1's sequence form against its
@@ -113,6 +116,41 @@ def test_fused_cca_decode_f32_matches_plain(cuda, w, t, d, f1):
     before = decode_kernel.fused_cca_decode.launches
     single = decode_kernel.fused_cca_decode(folded, x1, x2a)
     assert decode_kernel.fused_cca_decode.launches == before + 1
+    pair = decode_kernel.fused_cca_decode(folded, x1, x2a, x2b)
+    assert decode_kernel.fused_cca_decode.launches == before + 2
+    want_a = decode_kernel.fused_cca_decode_reference(folded, x1, x2a)
+    want_b = decode_kernel.fused_cca_decode_reference(folded, x1, x2b)
+    torch.testing.assert_close(single, want_a, **F32_TOL)
+    torch.testing.assert_close(pair, torch.stack([want_a, want_b]),
+                               **F32_TOL)
+
+
+def _narrow_cases():
+    """(f1, d) for F1 in {1, 5, 10, 16} and every D <= F1 of 1, 5, 10,
+    16 (F2 = F1)."""
+    return [(f1, d) for f1 in (1, 5, 10, 16) for d in (1, 5, 10, 16)
+            if d <= f1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('f1,d', _narrow_cases())
+@pytest.mark.parametrize('w', [32, 11776])
+def test_fused_cca_decode_f32_narrow_features(cuda, w, f1, d):
+    """Narrow features, as a deep CCA's tower outputs give (F1 = F2 =
+    D = 10 on the codelab path): at the served pair of 32 frames the plan
+    takes a cluster of 16, whose blocks past F1 own no features (F1 = 10:
+    slice 1, ranks 10-15 empty); at 11776 windows of one frame (a test
+    split's frame scores) one block a tile. Single and pair form against
+    the plain version, one launch each."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cluster, _, slice_, _, _ = decode_kernel.f32_plan(w, 1, f1, f1, sms)
+    if w == 32:
+        assert cluster == 16 and slice_ * cluster >= f1
+    rng = np.random.RandomState(10 * f1 + d)
+    folded = _folded(cuda, rng, f1, f1, d)
+    x1, x2a, x2b = _f32_windows(cuda, w + f1, w, 1, f1, f2=f1)
+    before = decode_kernel.fused_cca_decode.launches
+    single = decode_kernel.fused_cca_decode(folded, x1, x2a)
     pair = decode_kernel.fused_cca_decode(folded, x1, x2a, x2b)
     assert decode_kernel.fused_cca_decode.launches == before + 2
     want_a = decode_kernel.fused_cca_decode_reference(folded, x1, x2a)
@@ -336,6 +374,73 @@ def test_frame_scores_on_card_match_cpu(cuda):
     got_batches = card.frame_scores(list(dataset))
     np.testing.assert_allclose(got_batches[0], want[0], rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_dcca_decoder_on_card_matches_cpu(cuda):
+    """A deep CCA's decoder on the card: one K1 launch a pair, on the
+    towers' outputs (F1 = F2 = D = 10), against the CPU's plain decode of
+    the same model, statistics and LDA."""
+    from telluride_decoding_torch.decode.infer_decoder import CCADecoder
+    from telluride_decoding_torch.models.cca import BrainModelDCCA
+    rng = np.random.RandomState(6)
+    n, f1, f2 = 800, 60, 7
+    x1 = rng.randn(n, f1).astype(np.float32)
+    x2 = (x1[:, :f2] + rng.randn(n, f2)).astype(np.float32)
+    x2b = rng.randn(n, f2).astype(np.float32)
+    cpu_model, card_model = (
+        BrainModelDCCA(cca_dims=10, hidden_units=[20, 20], input1_width=f1,
+                       input2_width=f2, device=where)
+        for where in ('cpu', cuda))
+    cpu_model.fit([({'input_1': x1, 'input_2': x2}, x2)], epochs=2,
+                  batch_size=200)
+    card_model.set_params(cpu_model.params)
+    cpu = CCADecoder(cpu_model, reduction='lda', device='cpu')
+    cpu.train([({'input_1': x1, 'input_2': x2b}, x2b)],
+              [({'input_1': x1, 'input_2': x2}, x2)], window_size=10)
+    card = CCADecoder(card_model, reduction='lda', device=cuda)
+    card.model_params = cpu.model_params
+    want = cpu.infer_pair(x1[:32], x2[:32], x2b[:32], x2[:32], x2b[:32])
+    before = decode_kernel.fused_cca_decode.launches
+    got = card.infer_pair(x1[:32], x2[:32], x2b[:32], x2[:32], x2b[:32])
+    assert decode_kernel.fused_cca_decode.launches == before + 1
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_streamed_dnn_fit_on_card_matches_cpu(cuda, tmp_path):
+    """The DNN's streamed fit from one initialisation on the card and on
+    the CPU: the same batch stream, parameters within 1e-3 after some 20
+    Adam steps at lr 0.05 (float32 sums in another order, TF32 off)."""
+    from telluride_decoding_torch.data import records
+    from telluride_decoding_torch.data.brain_data import TFExampleData
+    from telluride_decoding_torch.models.brain_model import BrainModelDNN
+    rng = np.random.RandomState(7)
+    for i in range(3):
+        eeg = rng.randn(900, 6).astype(np.float32)
+        records.convert_data_to_tfrecords(
+            {'eeg': eeg, 'intensity': eeg[:, :1] + 0.1 * rng.randn(
+                900, 1).astype(np.float32)},
+            str(tmp_path / ('trial%d.tfrecords' % i)))
+    fits = []
+    init = None
+    for where in ('cpu', cuda):
+        data = TFExampleData('eeg', 'intensity', 100, post_context=4,
+                             data_dir=str(tmp_path),
+                             train_file_pattern='trial', device=where)
+        model = BrainModelDNN(data.spec_dataset(), [20, 20], device=where)
+        model.compile(learning_rate=0.05)
+        if init is None:
+            init = model._init_params(torch.Generator().manual_seed(0))
+        model.set_params(init)
+        fits.append((model.fit_streaming(data, 'train',
+                                         batch_size=128)['loss'],
+                     {k: v.cpu() for k, v in model.params.items()}))
+    np.testing.assert_allclose(fits[1][0], fits[0][0], rtol=0, atol=1e-3)
+    for key, value in fits[0][1].items():
+        torch.testing.assert_close(fits[1][1][key], value, rtol=0,
+                                   atol=1e-3)
 
 
 @pytest.mark.cuda

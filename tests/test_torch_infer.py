@@ -8,7 +8,8 @@ and ``stepped`` (the frame scores agree to float32 rounding and only
 cross-window means are compared), and within one window's share
 (1 / windows) for ``ssd``, whose probabilities agree to about 1e-7
 (tests/test_torch_attention_decoder.py) but may sit on either side of
-0.5. The CSV must be the same byte for byte.
+0.5. The CSV must be the same byte for byte. A DNN and a deep CCA
+trained by the JAX driver on the same file sweep as they do there.
 """
 
 import os
@@ -227,3 +228,33 @@ def test_infer_imports_no_jax():
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout
+
+
+@pytest.mark.parametrize('kind', ['fullyconnected', 'dcca'])
+def test_sgd_model_dirs_sweep_as_in_jax(setup, tmp_path, kind):
+    """A DNN and a deep CCA trained by the JAX driver on the same file
+    load through the registry and sweep as in the JAX driver (a DCCA's
+    lda frame scores through K1's plain version on its towers'
+    outputs)."""
+    tf_dir = setup[0]
+    model_dir = str(tmp_path / kind)
+    values = dict(
+        data='tfrecords', tfexample_dir=tf_dir, input_field='eeg',
+        output_field='loudness', attended_field='attend', frame_rate=100.0,
+        pre_context=0, post_context=0, dnn_regressor=kind,
+        hidden_units='8', learning_rate=1e-2, epoch_count=10,
+        regularization_lambda=1e-3, batch_size=200, shuffle_buffer_size=0,
+        train_file_pattern='train', validate_file_pattern='train',
+        test_file_pattern='train', summary_dir=str(tmp_path / 'summary'),
+        saved_model_dir=model_dir, correlation_reducer='lda')
+    if kind == 'dcca':
+        values.update(input2_field='loudness', cca_dimensions=1)
+    jax_decoding.run_decoding_experiment(
+        jax_decoding.DecodingOptions().set_from_dict(values))
+    sizes = [100, 200, 400]
+    got, want = (module.run_reduction_test(
+        model_dir, tf_dir, ['train'], ['test'], 'lda', 'wta', *LABELS,
+        window_list=sizes, **extra)
+        for module, extra in ((infer, {'device': 'cpu'}), (jax_infer, {})))
+    assert got == want
+    assert got[200] > 0.9

@@ -19,11 +19,15 @@ import h5py
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 from telluride_decoding_tpu.cli import export_keras as jax_cli
 from telluride_decoding_tpu.io import keras_h5 as jax_h5
 from telluride_decoding_tpu.io import saved_model_pb as jax_pb
 from telluride_decoding_tpu.models import BrainModelCCA as JaxCCA
+from telluride_decoding_tpu.models import BrainModelClassifier as JaxClassifier
+from telluride_decoding_tpu.models import BrainModelDCCA as JaxDCCA
+from telluride_decoding_tpu.models import BrainModelDNN as JaxDNN
 from telluride_decoding_tpu.models import (
     BrainModelLinearRegression as JaxLinear)
 from telluride_decoding_torch.cli import export_keras
@@ -44,11 +48,38 @@ SAVED_MODEL_FILES = ('saved_model.pb', 'keras_metadata.pb',
                      'variables/variables.data-00000-of-00001')
 
 
+# The SGD families: (JAX class, constructor config) at small widths.
+SGD_FAMILIES = {
+    'dnn': (JaxDNN, dict(num_hidden_list=[8, 8], input_width=12,
+                         output_width=1)),
+    'dnn_bn': (JaxDNN, dict(num_hidden_list=[8, 8], input_width=12,
+                            output_width=1, batch_norm=True)),
+    'classifier': (JaxClassifier, dict(num_hidden_list=[8],
+                                       input_width=12, input2_width=5,
+                                       output_width=1)),
+    'dcca': (JaxDCCA, dict(cca_dims=3, hidden_units=[8, 8],
+                           input1_width=12, input2_width=5)),
+}
+KINDS = ['linear', 'cca'] + sorted(SGD_FAMILIES)
+
+
 def models(kind, strings='all', seed=0):
     """{'jax': model, 'torch': model} holding the same float32 weights
-    and telluride strings."""
+    and telluride strings (random ones for the SGD families, batch-norm
+    statistics and the DCCA's final CCA included)."""
     rng = np.random.RandomState(seed)
-    if kind == 'linear':
+    if kind in SGD_FAMILIES:
+        cls, config = SGD_FAMILIES[kind]
+        jax_model = cls(**config)
+        template = jax_model._init_params(jax.random.PRNGKey(seed))
+        flat = {k: rng.randn(*np.shape(v)).astype(np.float32)
+                for k, v in convert.flat_params(template).items()}
+        flat.update({k: 0.5 + rng.rand(*v.shape).astype(np.float32)
+                     for k, v in flat.items() if k.endswith('/var')})
+        jax_model._restore_params(flat)
+        torch_model = convert.sgd_params_from_numpy(
+            cls.__name__, flat, 'cpu', jax_model.config())
+    elif kind == 'linear':
         flat = {'w': rng.randn(12, 2).astype(np.float32),
                 'b': rng.randn(2).astype(np.float32)}
         jax_model = JaxLinear(input_width=12, output_width=2)
@@ -60,7 +91,8 @@ def models(kind, strings='all', seed=0):
                 'rot2': rng.randn(5, 3).astype(np.float32)}
         jax_model = JaxCCA(cca_dims=3, input1_width=12, input2_width=5)
         torch_model = convert.cca_params_from_numpy(flat, 'cpu')
-    jax_model.params = {k: jnp.asarray(v) for k, v in flat.items()}
+    if kind in ('linear', 'cca'):
+        jax_model.params = {k: jnp.asarray(v) for k, v in flat.items()}
     for model in (jax_model, torch_model):
         for attr, text in STRINGS[strings].items():
             setattr(model, attr, text)
@@ -109,7 +141,7 @@ def h5_structure(path):
 # -- export_saved_model and export_saved_model_variables ------------------------
 
 @pytest.mark.parametrize('strings', sorted(STRINGS))
-@pytest.mark.parametrize('kind', ['linear', 'cca'])
+@pytest.mark.parametrize('kind', KINDS)
 def test_saved_model_bytes_match_jax(kind, strings, tmp_path):
     pair = models(kind, strings)
     saved_model_pb.export_saved_model(pair['torch'], str(tmp_path / 'torch'))
@@ -148,7 +180,7 @@ def test_linear_saved_model_migrates_back_bit_for_bit(tmp_path):
 # -- export_keras_h5 ---------------------------------------------------------------
 
 @pytest.mark.parametrize('strings', sorted(STRINGS))
-@pytest.mark.parametrize('kind', ['linear', 'cca'])
+@pytest.mark.parametrize('kind', KINDS)
 def test_h5_structure_matches_jax(kind, strings, tmp_path):
     pair = models(kind, strings)
     keras_h5.export_keras_h5(pair['torch'], str(tmp_path / 'torch.h5'))
@@ -214,13 +246,19 @@ EXPORTERS = {
 }
 
 
-@pytest.mark.parametrize('exporter', sorted(EXPORTERS))
-@pytest.mark.parametrize('model', ['unfit', 'other'])
+@pytest.mark.parametrize('model,exporter', [
+    (model, exporter) for model in ('unfit', 'other')
+    for exporter in sorted(EXPORTERS)] + [
+    (model, 'variables') for model in sorted(SGD_FAMILIES)])
 def test_refusals_match_jax(exporter, model, tmp_path):
+    """An unfit model, a class no exporter covers and, for the
+    positional variables export, the SGD families."""
     ours, theirs = EXPORTERS[exporter]
     got = want = None
     for fn, package in ((ours, 'torch'), (theirs, 'jax')):
-        subject = unfit(package) if model == 'unfit' else BrainModelOther()
+        subject = (unfit(package) if model == 'unfit' else
+                   BrainModelOther() if model == 'other' else
+                   models(model)[package])
         try:
             fn(subject, str(tmp_path / ('%s_out' % package)))
             result = 'returned'
@@ -261,8 +299,11 @@ def native_dir(path, kind):
     return str(path)
 
 
-@pytest.mark.parametrize('mode', ['h5', 'saved-model', 'variables'])
-@pytest.mark.parametrize('kind', ['linear', 'cca'])
+@pytest.mark.parametrize('kind,mode', [
+    (kind, mode) for kind in ('linear', 'cca')
+    for mode in ('h5', 'saved-model', 'variables')] + [
+    (kind, mode) for kind in ('dnn_bn', 'dcca')
+    for mode in ('h5', 'saved-model')])
 def test_cli_writes_what_jax_writes(kind, mode, tmp_path, capsys):
     src = native_dir(tmp_path / 'src', kind)
     flags = [] if mode == 'h5' else ['--' + mode]

@@ -72,3 +72,23 @@ def test_fit_two_classes_and_errors(rng):
             rng.randn(9, 2), np.arange(9) % 3)
     with pytest.raises(ValueError):
         lda.LinearDiscriminantAnalysis('cpu').transform(rng.randn(3, 2))
+
+
+@pytest.mark.parametrize('data', ['nan', 'zeros'])
+def test_degenerate_classes_match_jax(data):
+    """Correlations of a regressor whose output is constant: NaN (its
+    power is 0) gives a NaN projection and NaN scores in both packages
+    (the driver's d' is nan), exactly equal classes the same error."""
+    fill = np.nan if data == 'nan' else 0.0
+    x = np.full((20, 3), fill, np.float32)
+    y = np.array([1] * 10 + [2] * 10)
+    outcomes = []
+    for model in (lda.ScaledLinearDiscriminantAnalysis('cpu'),
+                  jax_lda.ScaledLinearDiscriminantAnalysis()):
+        try:
+            outcomes.append(('scores', np.isnan(
+                model.fit_transform(x, y)).all(), np.isnan(model.slope)))
+        except ValueError as error:
+            outcomes.append(('error', str(error)))
+    assert outcomes[0] == outcomes[1]
+    assert outcomes[0][0] == ('scores' if data == 'nan' else 'error')

@@ -273,16 +273,6 @@ def test_illegal_test_name_raises():
         regression.build_parser().parse_args(['--test_name', 'nope'])
 
 
-@pytest.mark.parametrize('protocol', ['whole_split', 'reference'])
-def test_sgd_models_raise_on_both_routes(records_dir, tmp_path, protocol):
-    my_flags = _options(decoding, records_dir,
-                        dnn_regressor='fullyconnected', protocol=protocol)
-    with pytest.raises(ValueError, match='SGD model'):
-        regression.Regression(my_flags, device='cpu') \
-            .jackknife_over_regularizations(
-                my_flags, [1e-2], summary_base_dir=str(tmp_path))
-
-
 def test_main_defaults_to_the_card(records_dir, tmp_path):
     if torch.cuda.is_available():
         pytest.skip('checks the error on a machine without a card')
