@@ -247,6 +247,19 @@ CLASSIFIER_FLAGS = ['--input_field', 'x1', '--input2_field', 'x2',
                     '--train_file_pattern', 'trainset',
                     '--validate_file_pattern', 'heldout',
                     '--test_file_pattern', 'heldout']
+# Phase 15: AOT artifacts of the models of phases 4 (the codelab CCA,
+# lda), 14 (the DCCA, lda) and 8 (linear, first), served on phase 4's
+# stream beside their directories: the CCA's scores bit for bit (one K1
+# launch on the same operands); the others' within AOT_TOL of the live
+# decoder's, relative to the larger of 1 and the score, and in the
+# decision records (scores rounded to RECORD_UNIT) within AOT_TOL +
+# RECORD_UNIT. The CCA artifact exported on the CPU folds K1's constants
+# with the CPU's float32 products, so it is held to SERVE_TOL, the bound
+# of a card decode against a CPU decode.
+AOT_DIR = os.path.join(BUILD, 'aot')
+AOT_TOL = 1e-6
+RECORD_UNIT = 1e-6
+AOT_HOST_REPS = 200
 # S1's chain measurements (s1_bound): a source of their own that includes
 # S1's, built beside the kernel library, not into it.
 S1_CHAIN_SOURCE = os.path.join(REPO, 'chip_smoke_csrc', 's1_chain.cu')
@@ -949,9 +962,10 @@ def fit_and_save(model_dir, attended, unattended, dims, mode='train'):
     return times
 
 
-def serve_stream(model_dir, stream, device, frame_rate):
-    """Serves (eeg, audio1, audio2) through cli.serve.main; returns the
-    decision records, the summary line and the serve seconds."""
+def serve_stream(model_dir, stream, device, frame_rate, extra=()):
+    """Serves (eeg, audio1, audio2) through cli.serve.main, with
+    ``extra`` flags; returns the decision records, the summary line and
+    the serve seconds."""
     from telluride_decoding_torch.cli import serve
     stream_path = os.path.join(model_dir, 'stream.npz')
     out_path = os.path.join(model_dir, 'decisions.jsonl')
@@ -961,7 +975,8 @@ def serve_stream(model_dir, stream, device, frame_rate):
                 '--serve_output', out_path, '--chunk_size', '32',
                 '--serve_window_width', '100', '--serve_window_step', '50',
                 '--serve_decoder', 'wta', '--serve_frame_rate',
-                str(frame_rate), '--serve_device', str(device)])
+                str(frame_rate), '--serve_device', str(device),
+                *extra])
     seconds = time.perf_counter() - t0
     with open(out_path) as f:
         lines = [json.loads(line) for line in f]
@@ -2346,6 +2361,16 @@ def ssd_tracking_error(decisions, switch_s, k_w, k_b):
     return float(np.mean(wrong))
 
 
+def stream_lines(stream):
+    """``stream`` as the line protocol's JSON chunks of SERVE_ROWS
+    frames, one a line."""
+    eeg, a1, a2 = stream
+    return ''.join(json.dumps({'eeg': eeg[s:s + SERVE_ROWS].tolist(),
+                               'audio1': a1[s:s + SERVE_ROWS].tolist(),
+                               'audio2': a2[s:s + SERVE_ROWS].tolist()})
+                   + '\n' for s in range(0, eeg.shape[0], SERVE_ROWS))
+
+
 def tcp_session(model_dir, stream, device):
     """One session of ``serve_socket`` on loopback (port 0,
     max_sessions=1) with the stream as JSON lines of SERVE_ROWS frames;
@@ -2355,11 +2380,7 @@ def tcp_session(model_dir, stream, device):
     import socket
     import threading
     from telluride_decoding_torch.cli import serve
-    eeg, a1, a2 = stream
-    lines = ''.join(json.dumps({'eeg': eeg[s:s + SERVE_ROWS].tolist(),
-                                'audio1': a1[s:s + SERVE_ROWS].tolist(),
-                                'audio2': a2[s:s + SERVE_ROWS].tolist()})
-                    + '\n' for s in range(0, eeg.shape[0], SERVE_ROWS))
+    lines = stream_lines(stream)
     bound, box = queue.Queue(), {}
 
     def listen():
@@ -3483,22 +3504,23 @@ def phase_model_files(torch, device, smi):
     return launches
 
 
-def decisions_match(got, want):
-    """The same windows and decisions, scores within SERVE_TOL; returns
-    the largest score difference."""
+def decisions_match(got, want, tol=SERVE_TOL, what='served'):
+    """The same windows and decisions, scores within ``tol`` (0: the
+    same bits); returns the largest score difference."""
     if len(got) != len(want) or not got:
-        raise AssertionError('%d served windows against %d'
-                             % (len(got), len(want)))
+        raise AssertionError('%s: %d served windows against %d'
+                             % (what, len(got), len(want)))
     worst = 0.0
     for g, w in zip(got, want):
         if (g['window'], g['attend_speaker1']) != (w['window'],
                                                    w['attend_speaker1']):
-            raise AssertionError('served decisions differ: %s vs %s'
-                                 % (g, w))
+            raise AssertionError('%s: decisions differ: %s vs %s'
+                                 % (what, g, w))
         worst = max(worst, abs(g['score1'] - w['score1']),
                     abs(g['score2'] - w['score2']))
-    if worst > SERVE_TOL:
-        raise AssertionError('served scores differ by %g' % worst)
+    if worst > tol:
+        raise AssertionError('%s: scores differ by %g (limit %g)'
+                             % (what, worst, tol))
     return worst
 
 
@@ -3916,6 +3938,244 @@ def phase_sgd(torch, device, smi):
     return launches, k1
 
 
+def served_chunks(frames, chunk, delay):
+    """Pushes of a replay of ``frames`` frames in chunks of ``chunk`` that
+    score rows, one K1 launch each for a fused decode: every push after
+    the first ``delay`` frames (the largest post context) have arrived."""
+    return sum(min(k * chunk, frames) > delay
+               for k in range(1, -(-frames // chunk) + 1))
+
+
+def run_aot(device, models, stream, work):
+    """Phase 15's main path on ``device``. ``models`` maps a name to
+    (model directory, reduction, export flags); the first is a CCA
+    model with lda. Each is exported with cli.export_aot.app_main on
+    ``device`` and ``stream`` is served through cli.serve.main from the
+    artifact (with no --serve_reduction: the artifact's own) and from
+    the directory (with the reduction). The first artifact also serves
+    pipelined and through one serve_lines session, and is exported again
+    on the CPU and served on ``device``. Returns the artifacts, the
+    export seconds, each serve's (decisions, summary, seconds, K1
+    launches) and the serve_lines decisions."""
+    import io
+    from telluride_decoding_torch.cli import export_aot, serve
+    from telluride_decoding_torch.ops.decode_kernel import fused_cca_decode
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    artifacts, export_s, served = {}, {}, {}
+
+    def replay(key, path, extra=()):
+        before = fused_cca_decode.launches
+        decisions, summary, seconds = serve_stream(path, stream, device, 100,
+                                                   extra)
+        served[key] = (decisions, summary, seconds,
+                       fused_cca_decode.launches - before)
+    first = next(iter(models))
+    exports = [(name, str(device), name) for name in models]
+    exports.append((first + ' exported on the cpu', 'cpu', first))
+    for key, on, name in exports:
+        model_dir, reduction, flags = models[name]
+        artifacts[key] = os.path.join(work, key.replace(' ', '_'))
+        export_s[key] = quiet_call(export_aot.app_main, [
+            model_dir, artifacts[key], '--reduction', reduction,
+            '--device', on, *flags])
+    for name, (model_dir, reduction, _) in models.items():
+        native = os.path.join(work, name + '_dir')
+        shutil.copytree(model_dir, native, ignore=shutil.ignore_patterns(
+            'records*', 'stream.npz', '*.jsonl'))
+        replay(name + ' dir', native, ['--serve_reduction', reduction])
+        replay(name, artifacts[name])
+    replay(first + ' pipelined', artifacts[first], ['--serve_pipeline'])
+    replay(first + ' exported on the cpu',
+           artifacts[first + ' exported on the cpu'])
+    lines = serve.serve_lines(artifacts[first],
+                              io.StringIO(stream_lines(stream)),
+                              device=device)
+    return artifacts, export_s, served, lines
+
+
+def stream_frames(stream, params, frames=None):
+    """The served inputs of ``stream`` (its first ``frames`` rows), lag
+    stacked with the contexts of a model's experiment ``params``: the
+    five arguments of infer_pair."""
+    from telluride_decoding_torch.ops.lagstack import lag_stack_np
+    pre, post = params.get('pre_context', 0), params.get('post_context', 0)
+    pre2 = params.get('input2_pre_context', 0)
+    post2 = params.get('input2_post_context', 0)
+    eeg, a1, a2 = stream
+    n = eeg.shape[0] - max(post, post2) if frames is None else frames
+    return (lag_stack_np(eeg, pre, post)[:n],
+            lag_stack_np(a1, pre2, post2)[:n],
+            lag_stack_np(a2, pre2, post2)[:n], a1[:n], a2[:n])
+
+
+def artifact_score_diff(artifact, model_dir, reduction, stream, device):
+    """The largest difference between an artifact's infer_pair scores of
+    the whole stream and its directory's live decoder's, relative to the
+    larger of 1 and the score."""
+    from telluride_decoding_torch.cli import serve
+    from telluride_decoding_torch.decode import aot
+    live = serve.load_model(model_dir, reduction, device)
+    args = stream_frames(stream, live.decoding_model_params)
+    got = aot.load_exported_decoder(artifact, device).infer_pair(*args)
+    want = live.infer_pair(*args)
+    return max(float(np.max(np.abs(g - w) / np.maximum(1.0, np.abs(w))))
+               for g, w in zip(got, want))
+
+
+def check_aot(served, lines, models, stream, delay, on_card):
+    """Phase 15's checks of the served decision records; returns the
+    largest score differences."""
+    first = next(iter(models))
+    worst = {}
+    near = AOT_TOL + RECORD_UNIT
+    for name in models:
+        worst[name] = decisions_match(
+            served[name][0], served[name + ' dir'][0],
+            0.0 if name == first else near,
+            '%s artifact against its directory' % name)
+    for key, tol in ((first + ' pipelined', 0.0),
+                     (first + ' exported on the cpu', SERVE_TOL)):
+        worst[key] = decisions_match(served[key][0], served[first][0],
+                                     tol, key)
+    worst[first + ' serve_lines'] = decisions_match(
+        lines, served[first][0], 0.0, first + ' serve_lines session')
+    if not all(np.all(np.isfinite([d[k] for d in served[key][0]
+                                   for k in ('score1', 'score2')]))
+               for key in served):
+        raise AssertionError('non-finite served scores')
+    if on_card:
+        chunks = served_chunks(stream[0].shape[0], SERVE_ROWS, delay)
+        for key, (_, _, _, launches) in served.items():
+            k1 = key.split(' ')[0] in ('cca', 'dcca')
+            if launches != (chunks if k1 else 0):
+                raise AssertionError(
+                    '%s launched K1 %d times for %d served chunks'
+                    % (key, launches, chunks))
+    return worst
+
+
+def refuse_jax_artifact(work, device):
+    """A JAX package artifact (program infer_pair.shlo) is refused with
+    the port's text; returns it."""
+    from telluride_decoding_torch.cli import serve
+    from telluride_decoding_torch.decode import aot
+    path = os.path.join(work, 'jax_artifact')
+    os.makedirs(path)
+    with open(os.path.join(path, aot.MANIFEST_NAME), 'w') as f:
+        json.dump({'format_version': 1, 'program': 'infer_pair.shlo',
+                   'reduction': 'lda', 'platforms': ['tpu', 'cpu']}, f)
+    try:
+        serve._load_serving_decoder(path, None, device)
+    except ValueError as error:
+        text = str(error)
+    else:
+        raise AssertionError('a JAX artifact was served')
+    if text != aot.jax_artifact_refusal(path):
+        raise AssertionError('a JAX artifact refused with %r' % text)
+    return text
+
+
+def aot_call_times(artifact, model_dir, reduction, stream, device,
+                   reps=AOT_HOST_REPS):
+    """Load and first-call seconds of an artifact, and the host ms of one
+    ``infer_pair`` of a served chunk (SERVE_ROWS frames), artifact
+    against the live decoder of its directory: perf_counter over ``reps``
+    calls each, in the order artifact, live, live, artifact (each call
+    reads its scores back)."""
+    from telluride_decoding_torch.cli import serve
+    from telluride_decoding_torch.decode import aot
+    t0 = time.perf_counter()
+    exported = aot.load_exported_decoder(artifact, device)
+    load_s = time.perf_counter() - t0
+    live = serve.load_model(model_dir, reduction, device)
+    args = stream_frames(stream, live.decoding_model_params, SERVE_ROWS)
+    t0 = time.perf_counter()
+    exported.infer_pair(*args)
+    first_s = time.perf_counter() - t0
+    live.infer_pair(*args)
+    ms = {'artifact': [], 'live': []}
+    for key in ('artifact', 'live', 'live', 'artifact'):
+        decoder = exported if key == 'artifact' else live
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            decoder.infer_pair(*args)
+        ms[key].append((time.perf_counter() - t0) / reps * 1e3)
+    return load_s, first_s, {k: float(np.mean(v)) for k, v in ms.items()}
+
+
+def phase_aot(torch, device, smi):
+    """AOT artifacts on the card: phase 4's codelab CCA model (lda), phase
+    14's DCCA (lda) and phase 8's linear model (first) exported through
+    cli.export_aot, and phase 4's stream served from each artifact
+    through cli.serve.main beside its directory; the CCA artifact also
+    pipelined, through serve_lines, and exported on the CPU and served
+    on the card; a JAX artifact refused. The CCA's served scores must be
+    the directory's bit for bit, the DCCA's and the linear model's within
+    AOT_TOL with the same decisions, and each CCA or DCCA serve must
+    launch K1 once a served chunk. Then, not counted: load, first-call
+    and host times of infer_pair, artifact against live decoder."""
+    start = time.perf_counter()
+    models = collections.OrderedDict([
+        ('cca', (CODELAB_DIR, 'lda', ['--input_widths', '%d,%d' % (
+            IN1_CHANNELS * (PRE + 1 + POST), IN2_PRE + 1 + IN2_POST),
+            '--output_width', '1'])),
+        ('dcca', (os.path.join(SGD_DIR, 'dcca_model'), 'lda', [])),
+        ('linear', (os.path.join(DECODING_DIR, 'linear_model'), 'first',
+                    []))])
+    for model_dir, _, _ in models.values():
+        if not os.path.isfile(os.path.join(model_dir, 'model.json')):
+            raise AssertionError('phase 15 reads the models of phases 4, 8 '
+                                 'and 14; %s has none' % model_dir)
+    with np.load(os.path.join(CODELAB_DIR, 'stream.npz')) as data:
+        stream = (data['eeg'], data['audio1'], data['audio2'])
+    delay = max(POST, IN2_POST)
+    read_launches = reset_launches()
+    artifacts, export_s, served, lines = run_aot(device, models, stream,
+                                                 AOT_DIR)
+    launches = read_launches()
+    require_launched(launches, ('fused_cca_decode',), 'aot')
+    on_card = str(device).startswith('cuda')
+    worst = check_aot(served, lines, models, stream, delay, on_card)
+    raw = {key: artifact_score_diff(artifacts[key], models[name][0],
+                                    models[name][1], stream, device)
+           for key, name in (('cca', 'cca'), ('dcca', 'dcca'),
+                             ('linear', 'linear'),
+                             ('cca exported on the cpu', 'cca'))}
+    if (raw['cca'] != 0.0 or max(raw['dcca'], raw['linear']) > AOT_TOL
+            or raw['cca exported on the cpu'] > SERVE_TOL):
+        raise AssertionError('artifact scores of the whole stream differ '
+                             'from the live decoders\': %s' % raw)
+    refusal = refuse_jax_artifact(AOT_DIR, device)
+    times = {name: aot_call_times(artifacts[name], models[name][0],
+                                  models[name][1], stream, device)
+             for name in models}
+    for key, (decisions, summary, seconds, k1) in served.items():
+        log('phase 15 aot serve %s: %d windows, %.1f s, p50 %s ms, p95 %s '
+            'ms, K1 launches %d'
+            % (key, len(decisions), seconds, summary.get('latency_p50_ms'),
+               summary.get('latency_p95_ms'), k1))
+    log('phase 15 aot: served scores against the directory (0: the same '
+        'bits): %s; infer_pair over the whole stream against the live '
+        'decoder (relative): %s; each K1 serve launched K1 once for each '
+        'of its %d served chunks; JAX artifact refused: %s'
+        % (json.dumps(worst), json.dumps(raw),
+           served_chunks(stream[0].shape[0], SERVE_ROWS, delay), refusal))
+    log('phase 15 aot: ' + json.dumps({
+        'export_s': export_s,
+        'load_s': {k: v[0] for k, v in times.items()},
+        'first_call_s': {k: v[1] for k, v in times.items()},
+        'infer_pair_host_ms': {k: v[2] for k, v in times.items()},
+        'serve_p50_ms': {k: v[1].get('latency_p50_ms')
+                         for k, v in served.items()},
+        'serve_p95_ms': {k: v[1].get('latency_p95_ms')
+                         for k, v in served.items()},
+        'k1_launches': {k: v[3] for k, v in served.items()}}))
+    log('phase 15 aot: launches %s; %.1f s in all; %s'
+        % (launches, time.perf_counter() - start, smi))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3938,9 +4198,10 @@ def main():
     raw_ingest = phase_raw_ingest(torch, device, smi)
     model_files = phase_model_files(torch, device, smi)
     sgd, k1_dcca = phase_sgd(torch, device, smi)
+    aot = phase_aot(torch, device, smi)
     launches = {name: codelab[name] + kuleuven[name] + decoding[name] +
                 sweep[name] + cohort[name] + attention[name] +
-                raw_ingest[name] + model_files[name] + sgd[name]
+                raw_ingest[name] + model_files[name] + sgd[name] + aot[name]
                 for name in kuleuven}
     common = dict(route='cuda', library_ms=None)
     kernels = [

@@ -21,10 +21,15 @@ once and sessions served one after another, each with fresh streaming
 state. ``--selftest`` serves a toy linear model and checks the decisions
 track a planted attention switch. The flags keep the names of the JAX
 package's tdt-serve; ``--serve_device`` (default cuda) is new. The
-model directory is a native one (model.json) or a reference TF SavedModel
+model directory is a native one (model.json), a reference TF SavedModel
 (saved_model.pb), migrated on the fly (models/migrate.py) beside its
-decoder_model.json. AOT artifact directories (``aot_manifest.json``) are
-not read yet.
+decoder_model.json, or an AOT artifact of the port (``aot_manifest.json``
+beside ``infer_pair.pt2``, written by ``cli.export_aot``), whose exported
+program scores each chunk (one K1 launch for a CCA or deep CCA model with
+the LDA reduction). An artifact serves with the reduction it was exported
+with: an explicit ``--serve_reduction`` that differs is refused, as in
+the JAX package. An artifact of the JAX package (a StableHLO program,
+``infer_pair.shlo``) cannot run in PyTorch and is refused.
 """
 
 from __future__ import annotations
@@ -43,14 +48,13 @@ from telluride_decoding_torch import kernels
 from telluride_decoding_torch.cli.decoding import add_flags
 from telluride_decoding_torch.cli.infer import load_model
 from telluride_decoding_torch.decide import attention_decoder
-from telluride_decoding_torch.decode import infer_decoder
+from telluride_decoding_torch.decode import aot, infer_decoder
 from telluride_decoding_torch.decode.result_store import TwoResultStore
 from telluride_decoding_torch.ops.lagstack import lag_stack_np
 
 REDUCTIONS = ('first', 'second', 'mean', 'mean-squared', 'lda')
 DECISIONS = ('wta', 'stepped', 'ssd')
 FIELDS = ('eeg', 'audio1', 'audio2')
-AOT_MANIFEST = 'aot_manifest.json'
 # A failure of the card or of a kernel is not a bad chunk: every later
 # chunk would fail alike, so it ends the session instead of being skipped.
 DEVICE_ERRORS = (kernels.KernelError,) + (
@@ -58,15 +62,24 @@ DEVICE_ERRORS = (kernels.KernelError,) + (
 
 
 def _load_serving_decoder(model_dir: str, reduction: Optional[str],
-                          device) -> infer_decoder.Decoder:
-    """A model directory's decoder; ``reduction=None`` (no explicit
-    request) means 'lda'. AOT artifacts of the JAX package are refused."""
-    if os.path.isfile(os.path.join(model_dir, AOT_MANIFEST)):
-        raise ValueError(
-            '%s is an AOT artifact (%s, StableHLO from the JAX package); '
-            'the port does not read AOT artifacts yet (ROADMAP item 9). '
-            'Serve the model directory it was exported from.'
-            % (model_dir, AOT_MANIFEST))
+                          device):
+    """A model directory's decoder, or an AOT artifact's ExportedDecoder.
+
+    ``reduction=None`` means "no explicit request": an artifact serves
+    with the reduction baked in at export time, a model directory with
+    'lda'. An explicit reduction that conflicts with an artifact's is
+    refused rather than silently ignored (JAX cli/serve.py:53-73); an
+    artifact of the JAX package is refused (decode/aot.py)."""
+    if aot.is_aot_artifact(model_dir):
+        decoder = aot.load_exported_decoder(model_dir, device)
+        if reduction is not None and reduction != decoder.reduction:
+            raise ValueError(
+                'AOT artifact %s was exported with reduction %r; '
+                'requested %r. Pass --serve_reduction %s (or drop the '
+                'flag), or re-export the artifact.'
+                % (model_dir, decoder.reduction, reduction,
+                   decoder.reduction))
+        return decoder
     return load_model(model_dir, 'lda' if reduction is None else reduction,
                       device)
 
@@ -508,7 +521,8 @@ def _selftest(out_stream, device) -> float:
 
 _FLAGS = [
     ('serve_model_dir', str, None, None,
-     'Trained model dir (model.json + weights.npz + decoder_model.json).'),
+     'Trained model dir (model.json + weights.npz + decoder_model.json), '
+     'or an AOT artifact dir of cli.export_aot (aot_manifest.json).'),
     ('serve_input', str, None, None,
      '.npz with eeg/audio1/audio2 arrays to replay, "-" to read JSON '
      'chunk lines from stdin, or "tcp://HOST:PORT" to listen for '

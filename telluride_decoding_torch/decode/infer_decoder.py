@@ -34,7 +34,8 @@ from telluride_decoding_torch.decode.metrics import (average_data,
                                                      calculate_dprime)
 from telluride_decoding_torch.ops.decode_kernel import (FoldedDecode,
                                                         fold_decode_params,
-                                                        fused_cca_decode)
+                                                        fused_cca_decode,
+                                                        kernel_operands)
 from telluride_decoding_torch.solvers import lda as scaled_lda
 
 CorrelationParamsTuple = collections.namedtuple('CorrelationParamsTuple', [
@@ -86,6 +87,48 @@ class _Pipeline(collections.namedtuple('_Pipeline',
     ``folded`` (kernel K1's parameters, which rotate the kernel inputs of
     ``Decoder._kernel_inputs``) when the fused decode applies, else None
     and ``correlate_reduce(r1, r2)`` in plain torch."""
+
+
+class PairProgram(torch.nn.Module):
+    """A decoder's two-stream program ``(input_1, input_2a, input_2b,
+    output_a, output_b) -> (scores_a, scores_b)``, built from
+    ``Decoder._build_pipeline`` with the statistics, the LDA and the
+    model's weights as constants: what decode/aot.py exports.
+
+    It makes the split ``Decoder._scores`` makes. Where the fused decode
+    applies (a CCA or deep CCA model with the LDA reduction) it runs the
+    towers of a deep CCA model, then one op ``tdt::fused_cca_decode_f32``
+    (kernel K1 on the card) over both streams, on K1's operands held as
+    buffers; otherwise ``_decode_tensors`` and ``correlate_reduce`` per
+    stream in plain torch.
+    """
+
+    def __init__(self, decoder: 'Decoder'):
+        super().__init__()
+        self._decoder = decoder
+        # A submodule, so the model's buffers are the program's.
+        self.model = decoder.decoding_model
+        self._dims = 0
+        folded, self._correlate_reduce = decoder._build_pipeline()
+        if folded is not None:
+            self._dims = int(folded.rot1.shape[1])
+            for name, tensor in zip(('rot1', 'rot2', 'consts'),
+                                    kernel_operands(folded)):
+                self.register_buffer(name, tensor)
+
+    def forward(self, input_1, input_2a, input_2b, output_a, output_b):
+        decoder = self._decoder
+        if self._dims:
+            x1, (x2a, x2b) = decoder._kernel_inputs(input_1,
+                                                    [input_2a, input_2b])
+            scores = torch.ops.tdt.fused_cca_decode_f32(
+                x1[:, None, :], x2a[:, None, :], x2b[:, None, :],
+                self.rot1, self.rot2, self.consts, self._dims)
+            return scores[0], scores[1]
+        return tuple(
+            self._correlate_reduce(*decoder._decode_tensors(
+                {'input_1': input_1, 'input_2': x2}, y))
+            for x2, y in ((input_2a, output_a), (input_2b, output_b)))
 
 
 class PendingScores:

@@ -20,13 +20,18 @@ scores are windows of T = 1.
   * prepared_operands: the rotations and constants in each kernel's
     form, kept per parameter set and dtype so a served chunk does not
     rebuild them; pack_mma_b is the bf16 B-operand packing it uses.
+  * fused_cca_decode_f32: the float32 cluster kernel as the PyTorch op
+    tdt::fused_cca_decode_f32 on the operands of kernel_operands, so
+    that torch.export keeps K1 as one node of an exported program
+    (decode/aot.py); it launches through fused_cca_decode's own launch
+    code and counts in fused_cca_decode.launches.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -332,12 +337,15 @@ def _sm_count(device) -> int:
     return sms
 
 
-def _launch_plan(folded: FoldedDecode, x1: torch.Tensor, x2: torch.Tensor,
-                 x2b: Optional[torch.Tensor]) -> _Launch:
+def _launch_plan(x1: torch.Tensor, x2: torch.Tensor,
+                 x2b: Optional[torch.Tensor], rot1: torch.Tensor,
+                 rot2: torch.Tensor, d: int, params) -> _Launch:
     """Checks what depends only on shapes, dtypes and devices, and plans
-    the launch; raises ValueError on what no kernel takes."""
+    the launch; raises ValueError on what no kernel takes. ``rot1`` and
+    ``rot2`` give F1 and F2 (their first axes), ``params`` every
+    parameter tensor, which must share x1's device."""
     streams = [x2] if x2b is None else [x2, x2b]
-    tensors = [x1, *streams, *folded]
+    tensors = [x1, *streams, *params]
     if any(t.device != x1.device for t in tensors) or \
             x1.device.type != 'cuda':
         raise ValueError('fused_cca_decode needs every tensor on one CUDA '
@@ -349,8 +357,7 @@ def _launch_plan(folded: FoldedDecode, x1: torch.Tensor, x2: torch.Tensor,
                          % [str(t.dtype) for t in (x1, *streams)])
     if any(t.dim() != 3 for t in (x1, *streams)):
         raise ValueError('fused_cca_decode takes [W, T, F] windows.')
-    f1, d = folded.rot1.shape
-    f2 = folded.rot2.shape[0]
+    f1, f2 = rot1.shape[0], rot2.shape[0]
     if d > MAX_DIMS or d < 1:
         raise ValueError('fused_cca_decode supports 1..%d dims, not %d.'
                          % (MAX_DIMS, d))
@@ -361,8 +368,7 @@ def _launch_plan(folded: FoldedDecode, x1: torch.Tensor, x2: torch.Tensor,
                          'x2 %s, rot1 %s, rot2 %s.'
                          % (tuple(x1.shape),
                             [tuple(s.shape) for s in streams],
-                            tuple(folded.rot1.shape),
-                            tuple(folded.rot2.shape)))
+                            tuple(rot1.shape), tuple(rot2.shape)))
     if frames < 1:
         raise ValueError('fused_cca_decode needs T >= 1 frames.')
     if windows == 0:
@@ -377,6 +383,43 @@ def _launch_plan(folded: FoldedDecode, x1: torch.Tensor, x2: torch.Tensor,
     struct = F32Plan(windows, frames, f1, f2, d, cluster, wpt, slice_, chunk)
     return _Launch(windows, lib.tdt_fused_cca_decode,
                    (ctypes.addressof(struct),), struct)
+
+
+def _launch(x1: torch.Tensor, x2: torch.Tensor, x2b: Optional[torch.Tensor],
+            rot1: torch.Tensor, rot2: torch.Tensor, d: int, params,
+            operand_pointers: Callable[[], tuple]) -> torch.Tensor:
+    """Launches kernel K1 once (or raises) for fused_cca_decode and the
+    op fused_cca_decode_f32: the plan is kept per call signature, so a
+    served chunk pays for the checks once; ``operand_pointers()`` gives
+    the addresses of the rotations and constants in the kernel's form."""
+    single = x2b is None
+    key = (x1.shape, x2.shape, None if single else x2b.shape,
+           x1.dtype, x2.dtype, None if single else x2b.dtype,
+           x1.device, x2.device, None if single else x2b.device,
+           rot1.shape, rot2.shape, rot1.device, d)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _launch_plan(x1, x2, x2b, rot1, rot2, d, params)
+        if len(_plans) >= _PLANS_SIZE:
+            _plans.clear()
+        _plans[key] = plan
+    if not (x1.is_contiguous() and x2.is_contiguous()
+            and (single or x2b.is_contiguous())):
+        raise ValueError('fused_cca_decode needs contiguous inputs.')
+    windows = plan.windows
+    out = torch.empty((windows,) if single else (2, windows),
+                      dtype=torch.float32, device=x1.device)
+    if windows == 0:
+        return out
+    out_a = out.data_ptr()
+    pointers = (x1.data_ptr(), x2.data_ptr(),
+                None if single else x2b.data_ptr())
+    outputs = (out_a, None if single else out_a + 4 * windows)
+    code = plan.entry(*pointers, *operand_pointers(), *outputs, *plan.args,
+                      kernels.stream_handle(x1.device))
+    kernels.check(code, 'fused_cca_decode')
+    fused_cca_decode.launches += 1
+    return out
 
 
 def fused_cca_decode(folded: FoldedDecode, x1: torch.Tensor,
@@ -397,34 +440,90 @@ def fused_cca_decode(folded: FoldedDecode, x1: torch.Tensor,
         scores = [fused_cca_decode_reference(folded, x1, s)
                   for s in ([x2] if single else [x2, x2b])]
         return scores[0] if single else torch.stack(scores)
-    key = (x1.shape, x2.shape, None if single else x2b.shape,
-           x1.dtype, x2.dtype, None if single else x2b.dtype,
-           x1.device, x2.device, None if single else x2b.device,
-           folded.rot1.shape, folded.rot2.shape, folded.rot1.device)
-    plan = _plans.get(key)
-    if plan is None:
-        plan = _launch_plan(folded, x1, x2, x2b)
-        if len(_plans) >= _PLANS_SIZE:
-            _plans.clear()
-        _plans[key] = plan
-    if not (x1.is_contiguous() and x2.is_contiguous()
-            and (single or x2b.is_contiguous())):
-        raise ValueError('fused_cca_decode needs contiguous inputs.')
-    windows = plan.windows
-    out = torch.empty((windows,) if single else (2, windows),
-                      dtype=torch.float32, device=x1.device)
-    if windows == 0:
-        return out
-    operands = prepared_operands(folded, x1.dtype)
-    out_a = out.data_ptr()
-    pointers = (x1.data_ptr(), x2.data_ptr(),
-                None if single else x2b.data_ptr())
-    outputs = (out_a, None if single else out_a + 4 * windows)
-    code = plan.entry(*pointers, *operands.pointers, *outputs, *plan.args,
-                      kernels.stream_handle(x1.device))
-    kernels.check(code, 'fused_cca_decode')
-    fused_cca_decode.launches += 1
-    return out
+    return _launch(x1, x2, x2b, folded.rot1, folded.rot2,
+                   folded.rot1.shape[1], folded,
+                   lambda: prepared_operands(folded, x1.dtype).pointers)
 
 
 fused_cca_decode.launches = 0
+
+
+def kernel_operands(folded: FoldedDecode) -> tuple:
+    """(rot1, rot2, consts) of ``folded`` in the float32 kernel's form
+    (PreparedOperands), new tensors that the caller owns: what the op
+    fused_cca_decode_f32 takes."""
+    return tuple(_prepare(folded, torch.float32)[:3])
+
+
+def _folded_from_operands(rot1: torch.Tensor, rot2: torch.Tensor,
+                          consts: torch.Tensor, dims: int) -> FoldedDecode:
+    """The FoldedDecode whose kernel form the operands are."""
+    cols = rot1.shape[1]
+    return FoldedDecode(rot1[:, :dims].contiguous(),
+                        rot2[:, :dims].contiguous(), consts[:dims],
+                        consts[cols:cols + dims],
+                        consts[2 * cols:2 * cols + dims], consts[3 * cols])
+
+
+def _check_operands(rot1: torch.Tensor, rot2: torch.Tensor,
+                    consts: torch.Tensor, dims: int):
+    if not (rot1.dim() == rot2.dim() == 2
+            and rot1.shape[1] == rot2.shape[1] == F32_COLS
+            and tuple(consts.shape) == (3 * F32_COLS + 1,)):
+        raise ValueError('fused_cca_decode_f32 takes rot1 [F1, %d], rot2 '
+                         '[F2, %d] and consts [%d] (kernel_operands), got '
+                         '%s, %s and %s.'
+                         % (F32_COLS, F32_COLS, 3 * F32_COLS + 1,
+                            tuple(rot1.shape), tuple(rot2.shape),
+                            tuple(consts.shape)))
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           for t in (rot1, rot2, consts)):
+        raise ValueError('fused_cca_decode_f32 takes contiguous float32 '
+                         'operands.')
+    if not 1 <= dims <= F32_COLS:
+        raise ValueError('fused_cca_decode supports 1..%d dims, not %d.'
+                         % (MAX_DIMS, dims))
+
+
+@torch.library.custom_op('tdt::fused_cca_decode_f32', mutates_args=(),
+                         device_types='cpu')
+def fused_cca_decode_f32(x1: torch.Tensor, x2a: torch.Tensor,
+                         x2b: Optional[torch.Tensor], rot1: torch.Tensor,
+                         rot2: torch.Tensor, consts: torch.Tensor,
+                         dims: int) -> torch.Tensor:
+    """K1 as a PyTorch operator, so that an exported program
+    (torch.export, decode/aot.py) holds the fused decode as one node.
+
+    Float32 windows x1 [W, T, F1], x2a and an optional x2b [W, T, F2],
+    the operands of ``kernel_operands`` and D, the count of their
+    columns that are real (the rest are zero): [W] scores, or [2, W]
+    with x2b. D is what the live decoder's launch plan holds, so the op
+    makes the very launch fused_cca_decode makes on the same parameters.
+    CUDA tensors launch the float32 cluster kernel through the launch
+    code of fused_cca_decode (its plan cache, checks and launch count)
+    or raise; CPU tensors take fused_cca_decode_reference.
+    """
+    _check_operands(rot1, rot2, consts, dims)
+    folded = _folded_from_operands(rot1, rot2, consts, dims)
+    scores = [fused_cca_decode_reference(folded, x1, s)
+              for s in ([x2a] if x2b is None else [x2a, x2b])]
+    return scores[0] if x2b is None else torch.stack(scores)
+
+
+@fused_cca_decode_f32.register_kernel('cuda')
+def _fused_cca_decode_f32_cuda(x1, x2a, x2b, rot1, rot2, consts, dims):
+    _check_operands(rot1, rot2, consts, dims)
+    if x1.dtype != torch.float32:
+        raise ValueError('fused_cca_decode_f32 takes float32 windows, got '
+                         '%s.' % x1.dtype)
+    return _launch(x1, x2a, x2b, rot1, rot2, dims, (rot1, rot2, consts),
+                   lambda: (rot1.data_ptr(), rot2.data_ptr(),
+                            consts.data_ptr()))
+
+
+@fused_cca_decode_f32.register_fake
+def _fused_cca_decode_f32_fake(x1, x2a, x2b, rot1, rot2, consts, dims):
+    del x2a, rot1, rot2, consts, dims
+    windows = x1.shape[0]
+    return x1.new_empty((windows,) if x2b is None else (2, windows),
+                        dtype=torch.float32)

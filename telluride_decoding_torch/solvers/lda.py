@@ -117,6 +117,14 @@ class LinearDiscriminantAnalysis:
         self._labels = np.array(values.labels)
         self._mean_vectors = np.array(values.mean_vectors)
 
+    @classmethod
+    def from_fitted_data(cls, x, y, *, device) -> 'LinearDiscriminantAnalysis':
+        """A new LDA of this class, fitted to (x, y) on ``device``
+        (telluride_decoding_tpu/solvers/lda.py:142-146)."""
+        obj = cls(device)
+        obj.fit(x, y)
+        return obj
+
     @staticmethod
     def expand_dims(data) -> np.ndarray:
         data = np.asarray(data)

@@ -860,3 +860,103 @@ def test_infer_pair_async_on_card_matches_infer_pair(cuda):
     np.testing.assert_array_equal(got_b, want[1])
     for g, w in zip(pending.harvest(), want):
         np.testing.assert_array_equal(g, w)
+
+
+def _operands(folded):
+    return decode_kernel.kernel_operands(folded), folded.rot1.shape[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('f1,f2,d', [(2553, 31, 10), (10, 10, 10)])
+@pytest.mark.parametrize('pair', [False, True])
+def test_fused_cca_decode_op_matches_plain(cuda, f1, f2, d, pair):
+    """The op tdt::fused_cca_decode_f32 on the card (the served pair of
+    32 frames at codelab width and at a deep CCA's F = 10): one K1 launch
+    a call, the plain version's scores, and the very bits of
+    fused_cca_decode on the same parameters."""
+    rng = np.random.RandomState(f1 + d)
+    folded = _folded(cuda, rng, f1, f2, d)
+    x1, x2a, x2b = _f32_windows(cuda, f1, 32, 1, f1, f2)
+    (rot1, rot2, consts), dims = _operands(folded)
+    before = decode_kernel.fused_cca_decode.launches
+    got = torch.ops.tdt.fused_cca_decode_f32(x1, x2a, x2b if pair else None,
+                                             rot1, rot2, consts, dims)
+    assert decode_kernel.fused_cca_decode.launches == before + 1
+    want = torch.stack([decode_kernel.fused_cca_decode_reference(
+        folded, x1, s) for s in (x2a, x2b)])
+    torch.testing.assert_close(got, want if pair else want[0], **F32_TOL)
+    direct = decode_kernel.fused_cca_decode(folded, x1, x2a,
+                                            x2b if pair else None)
+    assert torch.equal(got, direct)
+
+
+@pytest.mark.cuda
+def test_fused_cca_decode_op_refuses_what_the_kernel_does_not_take(cuda):
+    rng = np.random.RandomState(3)
+    folded = _folded(cuda, rng, 40, 5, 3)
+    x1, x2a, _ = _f32_windows(cuda, 1, 8, 1, 40, 5)
+    (rot1, rot2, consts), dims = _operands(folded)
+    op = torch.ops.tdt.fused_cca_decode_f32
+    with pytest.raises(ValueError):      # bf16 windows: no op form.
+        op(x1.bfloat16(), x2a.bfloat16(), None, rot1, rot2, consts, dims)
+    with pytest.raises(ValueError):      # Operands not in kernel form.
+        op(x1, x2a, None, folded.rot1, folded.rot2, consts, dims)
+    with pytest.raises(ValueError):      # Parameters on another device.
+        op(x1, x2a, None, rot1.cpu(), rot2.cpu(), consts.cpu(), dims)
+
+
+def _served_cca_decoder(device, seed=6, f1=40, f2=5, d=3):
+    """A CCA decoder with an LDA trained on the CPU, on ``device``."""
+    from telluride_decoding_torch.decode.infer_decoder import CCADecoder
+    from telluride_decoding_torch.models import convert
+    rng = np.random.RandomState(seed)
+    flat = {'mean1': rng.randn(1, f1), 'mean2': rng.randn(1, f2),
+            'rot1': rng.randn(f1, d) * 0.1, 'rot2': rng.randn(f2, d) * 0.3}
+    n = 600
+    x1 = rng.randn(n, f1).astype(np.float32)
+    x2 = (x1[:, :f2] + rng.randn(n, f2)).astype(np.float32)
+    out = np.zeros((n, 1), np.float32)
+    batches = [({'input_1': x1[i:i + 100], 'input_2': x2[i:i + 100]},
+                out[i:i + 100]) for i in range(0, n, 100)]
+    cpu = CCADecoder(convert.cca_params_from_numpy(flat, 'cpu'),
+                     reduction='lda', device='cpu')
+    cpu.train(batches[::-1], batches, window_size=10)
+    decoder = CCADecoder(convert.cca_params_from_numpy(flat, device),
+                         reduction='lda', device=device)
+    decoder.model_params = cpu.model_params
+    return decoder, (x1, x2, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('export_on', ['cuda', 'cpu'])
+def test_artifact_on_card_equals_live_decoder(cuda, tmp_path, export_on):
+    """An artifact of a CCA decoder with lda, exported on the card or on
+    the CPU and served on the card: one K1 launch a pair (the launch
+    counter counts it), and infer_pair_async a PendingPair of the same
+    scores. Exported on the card, the scores are the live decoder's bit
+    for bit (the same launch on the same operands); exported on the CPU,
+    whose float32 products fold K1's constants in another order, within
+    K1's float32 bound (F32_TOL: r1 - c1 cancels, so the fold's rounding
+    shows relative to the score)."""
+    from telluride_decoding_torch.decode import aot
+    exporter, _ = _served_cca_decoder(cuda if export_on == 'cuda' else 'cpu')
+    artifact = str(tmp_path / 'artifact')
+    aot.export_decoder(exporter, artifact, input_widths=(40, 5),
+                       output_width=1)
+    exported = aot.load_exported_decoder(artifact, cuda)
+    live, (x1, x2, out) = _served_cca_decoder(cuda)
+    for frames in (1, 32, 77):
+        args = (x1[:frames], x2[:frames], x2[100:100 + frames],
+                out[:frames], out[:frames])
+        before = decode_kernel.fused_cca_decode.launches
+        got = exported.infer_pair(*args)
+        assert decode_kernel.fused_cca_decode.launches == before + 1
+        want = live.infer_pair(*args)
+        for g, w in zip(got, want):
+            if export_on == 'cuda':
+                np.testing.assert_array_equal(g, w)
+            else:
+                np.testing.assert_allclose(g, w, **F32_TOL)
+        pending = exported.infer_pair_async(*args)
+        for g, w in zip(pending.harvest(), got):
+            np.testing.assert_array_equal(g, w)

@@ -92,3 +92,24 @@ def test_degenerate_classes_match_jax(data):
             outcomes.append(('error', str(error)))
     assert outcomes[0] == outcomes[1]
     assert outcomes[0][0] == ('scores' if data == 'nan' else 'error')
+
+
+@pytest.mark.parametrize('name', ['LinearDiscriminantAnalysis',
+                                  'ScaledLinearDiscriminantAnalysis'])
+def test_from_fitted_data_matches_jax(rng, name):
+    """from_fitted_data of the plain and the scaled LDA, each a new
+    object of its class fitted on one seeded two-class set: the same
+    transform as JAX's (first column up to its sign for the plain LDA,
+    whose projection has no slope to absorb it)."""
+    x, y = _two_classes(rng, d=3)
+    got = getattr(lda, name).from_fitted_data(x, y, device='cpu')
+    want = getattr(jax_lda, name).from_fitted_data(x, y)
+    assert type(got) is getattr(lda, name)
+    assert list(got.labels) == list(want.labels)
+    g, w = got.transform(x)[:, 0], np.asarray(want.transform(x))[:, 0]
+    if name == 'LinearDiscriminantAnalysis':
+        g = g * np.sign(np.dot(g, w))
+    np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(got.mean_vectors),
+                               np.asarray(want.mean_vectors), rtol=1e-4,
+                               atol=1e-5)

@@ -409,10 +409,81 @@ def test_attend_speaker1_thresholds_a_probability(served, p, want):
 
 
 def test_aot_artifact_is_refused(served, tmp_path):
-    with open(tmp_path / serve.AOT_MANIFEST, 'w') as f:
-        f.write('{}')
-    with pytest.raises(ValueError, match='ROADMAP item 9'):
-        serve._load_serving_decoder(str(tmp_path), None, 'cpu')
+    """An artifact of the JAX package (a StableHLO program) is refused,
+    with the tool that re-exports its model directory for the port."""
+    from telluride_decoding_tpu.cli.infer import load_model as jax_load
+    from telluride_decoding_tpu.decode import aot as jax_aot
+    artifact = str(tmp_path / 'jax_artifact')
+    jax_aot.export_decoder(jax_load(served[0], 'lda'), artifact,
+                           platforms=('cpu',), input_widths=(40, 5),
+                           output_width=1)
+    with pytest.raises(ValueError, match='StableHLO, which PyTorch cannot '
+                                         'run') as error:
+        serve._load_serving_decoder(artifact, None, 'cpu')
+    assert 'python -m telluride_decoding_torch.cli.export_aot' in \
+        str(error.value)
+
+
+@pytest.fixture(scope='module')
+def port_artifact(served, tmp_path_factory):
+    """The port's AOT artifact of the served model dir (reduction lda)."""
+    from telluride_decoding_torch.cli import export_aot
+    artifact = str(tmp_path_factory.mktemp('artifact') / 'cca')
+    export_aot.app_main([served[0], artifact, '--device', 'cpu',
+                         '--input_widths', '40,5', '--output_width', '1'])
+    return artifact
+
+
+@pytest.mark.parametrize('pipeline', [False, True])
+def test_main_replays_npz_from_an_artifact(served, port_artifact, tmp_path,
+                                           pipeline):
+    """cli.serve.main on the port's artifact: the model directory's
+    decisions and scores (the same decode on the CPU)."""
+    path, (eeg, a1, a2) = served
+    stream = str(tmp_path / 'stream.npz')
+    out = str(tmp_path / 'decisions.jsonl')
+    np.savez(stream, eeg=eeg, audio1=a1, audio2=a2)
+    assert serve.main(['--serve_model_dir', port_artifact, '--serve_input',
+                       stream, '--serve_output', out, '--serve_device', 'cpu']
+                      + ['--serve_pipeline'] * pipeline) == 0
+    with open(out) as f:
+        lines = [json.loads(line) for line in f]
+    assert lines[-1]['windows'] == len(lines) - 1
+    want = serve.serve_stream(path, eeg, a1, a2, device='cpu')
+    assert [(d['score1'], d['score2'], d['attend_speaker1'])
+            for d in lines[:-1]] == [
+        (d['score1'], d['score2'], d['attend_speaker1']) for d in want]
+
+
+def test_serve_lines_from_an_artifact(served, port_artifact):
+    path, stream = served
+    lines = '\n'.join(_lines(stream, frames=600)) + '\n'
+    got = serve.serve_lines(port_artifact, io.StringIO(lines), device='cpu')
+    want = serve.serve_lines(path, io.StringIO(lines), device='cpu')
+    assert len(got) == len(want) >= 5
+    assert [d['score1'] for d in got] == [d['score1'] for d in want]
+
+
+@pytest.mark.parametrize('package', ['jax', 'torch'])
+def test_conflicting_reduction_refused_by_artifact(served, port_artifact,
+                                                   tmp_path, package):
+    """An explicit reduction other than the artifact's is refused with
+    the JAX text; the artifact's own, or none, serves."""
+    if package == 'jax':
+        from telluride_decoding_tpu.cli.infer import load_model as jax_load
+        from telluride_decoding_tpu.decode import aot as jax_aot
+        artifact = str(tmp_path / 'jax_artifact')
+        jax_aot.export_decoder(jax_load(served[0], 'lda'), artifact,
+                               platforms=('cpu',), input_widths=(40, 5),
+                               output_width=1)
+        load = lambda r: jax_serve._load_serving_decoder(artifact, r)
+    else:
+        load = lambda r: serve._load_serving_decoder(port_artifact, r,
+                                                     'cpu')
+    with pytest.raises(ValueError, match="exported with reduction 'lda'; "
+                                         "requested 'first'"):
+        load('first')
+    assert load('lda').reduction == load(None).reduction == 'lda'
 
 
 def test_only_an_explicit_reduction_is_a_request(served, monkeypatch):
@@ -490,6 +561,22 @@ class TestServeSocket:
         path, stream = served
         lines = _lines(stream, frames=400)
         host, port, t, box = self._start(path, max_sessions=1)
+        got = self._session(host, port, lines)
+        t.join(timeout=60)
+        assert not t.is_alive() and box.get('counts') == [len(got)]
+        want = serve.serve_lines(path, io.StringIO('\n'.join(lines) + '\n'),
+                                 device='cpu')
+        assert len(got) == len(want) >= 5
+        assert got == [dict(w, latency_ms=g['latency_ms'])
+                       for g, w in zip(got, want)]
+
+    def test_round_trip_from_an_artifact(self, served, port_artifact):
+        """The listener serves the port's artifact (loaded once) as it
+        serves the model directory."""
+        path, stream = served
+        lines = _lines(stream, frames=400)
+        host, port, t, box = self._start(port_artifact, max_sessions=1,
+                                         reduction='lda')
         got = self._session(host, port, lines)
         t.join(timeout=60)
         assert not t.is_alive() and box.get('counts') == [len(got)]
