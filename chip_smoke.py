@@ -97,7 +97,15 @@ drives the main paths once:
   moments with one all_reduce; phase 10's cohort through
   ``cli.cohort.main`` in 4 ranks joined by one gather (K2 once a trial);
   ``cli.decoding.main --dp_fit`` in 2 ranks for the DNN and the DCCA,
-  whose window means and serve of phase 4's stream run K1 here.
+  whose window means and serve of phase 4's stream run K1 here;
+
+  walk-through, ``examples/full_pipeline_torch.py``'s ``main()``
+  (simulate -> BrainExperiment ingest -> ``run_decoding_experiment``,
+  linear -> the lambda sweep, K2 a file -> ``run_reduction_test`` with
+  ssd, one S1 sequence launch): at the JAX example's sizes (8 channels x
+  25 lags, 4 trials of 3000 frames) on the card and, in a process of its
+  own, on the CPU; at the codelab's width (69 x 37 = 2553 columns, 5
+  trials of 12000 frames) on the card, beside a CPU run of its sweep.
 
 Decisions must track the planted switch, served scores must match a
 CPU decode of the same stream with the plain versions, the decoding
@@ -136,7 +144,12 @@ float64 moments within float32 accumulation over a shard and the
 shards' own summed within MOMENT_RTOL, the 4-rank cohort's CSV phase
 10's within COHORT_CSV_TOL, the --dp_fit DNN phase 14's pearson within
 DP_FIT_TOL and the --dp_fit DCCA d' above 1; a rank that fails or
-outlives RANK_TIMEOUT_S fails the run.
+outlives RANK_TIMEOUT_S fails the run. The walk-through's records on the
+card must be the CPU's byte for byte, its results.txt within
+RESULTS_TOL and DPRIME_REL_TOL of the CPU's, its grids within SWEEP_TOL
+of the CPU's at both sizes, its ssd accuracies within one window's share
+of the CPU's, and at the codelab's width d' above 1 with one S1
+sequence launch.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -4727,6 +4740,194 @@ def phase_several_devices(torch, device, smi, cohort_main=None):
     return launches
 
 
+# Phase 17, the walk-through (examples/full_pipeline_torch.py): at the
+# JAX example's sizes, card against CPU (records byte for byte, results.txt
+# within RESULTS_TOL / DPRIME_REL_TOL, the grid within SWEEP_TOL, ssd
+# accuracies within one window's share); at the codelab's width (69
+# channels x 37 lags = 2553 columns, 5 trials of 12000 frames), the grid
+# against a CPU run of step 4 within SWEEP_TOL and d' above 1.
+WALK_DIR = os.path.join(BUILD, 'walkthrough')
+WALK_CODELAB = dict(channels=IN1_CHANNELS, ir_frames=POST + 1,
+                    num_trials=5, frames=12000)
+WALK_TIMEOUT_S = 600
+WALK_CPU_THREADS = 3
+
+
+def start_walkthrough_cpu(work, sweep_only, sizes):
+    """The example on the CPU in a process of its own, started now so it
+    runs beside the card's work: all five steps (``sweep_only`` false),
+    or steps 1, 2 and 4; writes ``work/result.json``."""
+    code = (
+        'import json, sys, numpy as np, torch\n'
+        'torch.set_num_threads(%d)\n'
+        'from examples import full_pipeline_torch as example\n'
+        'a = json.loads(sys.argv[1])\n'
+        'work, sizes = a["work"], a["sizes"]\n'
+        'out = {}\n'
+        'if a["sweep_only"]:\n'
+        '    trials = example.simulate_subject(\n'
+        '        np.random.RandomState(0), sizes["num_trials"],\n'
+        '        sizes["frames"], sizes["channels"], sizes["ir_frames"])\n'
+        '    example.write_records(trials, work + "/records")\n'
+        '    example.lambda_sweep(\n'
+        '        example.decoding_flags(work, sizes["ir_frames"]), work,\n'
+        '        sizes["ir_frames"], "cpu")\n'
+        'else:\n'
+        '    got = example.main(work, device="cpu", **sizes)\n'
+        '    out = dict(accuracy=got["accuracy"], seconds=got["seconds"])\n'
+        'with open(work + "/result.json", "w") as f:\n'
+        '    json.dump(out, f)\n') % WALK_CPU_THREADS
+    os.makedirs(work)
+    args = json.dumps(dict(work=work, sweep_only=sweep_only, sizes=sizes))
+    return subprocess.Popen(
+        [sys.executable, '-c', code, args], cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES=''),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+
+def finish_walkthrough_cpu(proc, work):
+    try:
+        _, err = proc.communicate(timeout=WALK_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError('the CPU walk-through in %s outlived %d s'
+                             % (work, WALK_TIMEOUT_S))
+    if proc.returncode != 0:
+        raise AssertionError('the CPU walk-through in %s exited %d:\n%s'
+                             % (work, proc.returncode, err[-3000:]))
+    with open(os.path.join(work, 'result.json')) as f:
+        return json.load(f)
+
+
+def walkthrough_on_card(example, work, device, sizes):
+    """example.main on the card, its printed lines dropped; returns its
+    result and the kernels' launches in the run."""
+    import io
+    read_launches = reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = example.main(work, device=device, **sizes)
+    return got, read_launches()
+
+
+def grid_diff(got_csv, want_csv):
+    got = np.genfromtxt(got_csv, delimiter=',')
+    want = np.genfromtxt(want_csv, delimiter=',')
+    if got.shape != want.shape or not np.array_equal(got[:, 0], want[:, 0]):
+        raise AssertionError('grids %s and %s differ in shape or lambdas'
+                             % (got_csv, want_csv))
+    return float(np.max(np.abs(got[:, 1:] - want[:, 1:])))
+
+
+def same_records(got_dir, want_dir):
+    """The number of files in two directories equal byte for byte."""
+    import filecmp
+    names = sorted(os.listdir(want_dir))
+    _, differ, unread = filecmp.cmpfiles(got_dir, want_dir, names,
+                                         shallow=False)
+    if sorted(os.listdir(got_dir)) != names or differ or unread:
+        raise AssertionError('records %s vs %s: %s differ'
+                             % (got_dir, want_dir, differ + unread))
+    return len(names)
+
+
+def walk_sizes(channels, ir_frames, num_trials, frames):
+    return ('%d channels x %d lags = %d columns, %d trials of %d frames'
+            % (channels, ir_frames, channels * ir_frames, num_trials,
+               frames))
+
+
+def walk_line(what, got, launches):
+    seconds = ', '.join('%s %.2f s' % kv for kv in got['seconds'].items())
+    return ('%s: %s; r %.6f, dprime %.4f, best lambda %.2g, ssd accuracy %s;'
+            ' launches K2 %d, S1 sequence %d, S1 window %d'
+            % (what, seconds, got['r'], got['dprime'], got['best_lambda'],
+               got['accuracy'], launches['lag_stack'],
+               launches['ssd_sequence'], launches['ssd_update']))
+
+
+def phase_walkthrough(torch, device, smi):
+    """Phase 17: examples/full_pipeline_torch.py on the card at the JAX
+    example's sizes against the same run on the CPU, then at the
+    codelab's width against a CPU run of its sweep."""
+    from examples import full_pipeline_torch as example
+    t0 = time.perf_counter()
+    shutil.rmtree(WALK_DIR, ignore_errors=True)
+    small_cpu_dir = os.path.join(WALK_DIR, 'small_cpu')
+    full_cpu_dir = os.path.join(WALK_DIR, 'codelab_cpu')
+    small_proc = start_walkthrough_cpu(small_cpu_dir, False, {})
+    full_proc = start_walkthrough_cpu(full_cpu_dir, True, WALK_CODELAB)
+    try:
+        small, small_launches = walkthrough_on_card(
+            example, os.path.join(WALK_DIR, 'small_card'), device, {})
+        full, full_launches = walkthrough_on_card(
+            example, os.path.join(WALK_DIR, 'codelab_card'), device,
+            WALK_CODELAB)
+        small_cpu = finish_walkthrough_cpu(small_proc, small_cpu_dir)
+        finish_walkthrough_cpu(full_proc, full_cpu_dir)
+    finally:
+        for proc in (small_proc, full_proc):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    # (a) The JAX example's sizes, card against CPU.
+    require_launched(small_launches, ('lag_stack', 'ssd_sequence'),
+                     'walk-through')
+    files = same_records(os.path.join(small['workdir'], 'records'),
+                         os.path.join(small_cpu_dir, 'records'))
+    results_diff = compare_results(
+        read_results(os.path.join(small['workdir'], 'summary')),
+        read_results(os.path.join(small_cpu_dir, 'summary')),
+        'walk-through results.txt')
+    small_grid = grid_diff(small['sweep_csv'],
+                           os.path.join(small_cpu_dir, 'sweep.csv'))
+    if small_grid > SWEEP_TOL:
+        raise AssertionError('walk-through grid: card vs CPU %.3g'
+                             % small_grid)
+    test_frames = 3000
+    worst_share = 0.0
+    for size, want in small_cpu['accuracy'].items():
+        size = int(size)
+        windows = (test_frames - size) // (size // 2) + 1
+        diff = abs(small['accuracy'][size] - want)
+        if diff > 1.0 / windows + 1e-12:
+            raise AssertionError('walk-through ssd at %d frames: card %r, '
+                                 'CPU %r' % (size, small['accuracy'][size],
+                                             want))
+        worst_share = max(worst_share, diff * windows)
+
+    # (b) The codelab's width on the card.
+    require_launched(full_launches, ('lag_stack',), 'codelab walk-through')
+    if full_launches['ssd_sequence'] != 1:
+        raise AssertionError('codelab walk-through: %d S1 sequence launches,'
+                             ' not 1' % full_launches['ssd_sequence'])
+    if not full['dprime'] > 1.0:
+        raise AssertionError('codelab walk-through: dprime %.4f'
+                             % full['dprime'])
+    full_grid = grid_diff(full['sweep_csv'],
+                          os.path.join(full_cpu_dir, 'sweep.csv'))
+    if full_grid > SWEEP_TOL:
+        raise AssertionError('codelab walk-through grid: card vs CPU %.3g'
+                             % full_grid)
+    log('phase 17 walk-through (examples/full_pipeline_torch.py), %.1f s:'
+        % (time.perf_counter() - t0))
+    log('  ' + walk_line('JAX sizes (%s) on the card' % walk_sizes(
+        example.NUM_CHANNELS, example.IR_FRAMES, 4, test_frames), small,
+        small_launches))
+    log('  CPU: %s; ssd accuracy %s' % (
+        ', '.join('%s %.2f s' % kv for kv in small_cpu['seconds'].items()),
+        small_cpu['accuracy']))
+    log('  card vs CPU: %d records byte for byte; results.txt %s; grid '
+        '%.3g; ssd within %.2f of a window' % (
+            files, results_diff, small_grid, worst_share))
+    log('  ' + walk_line('codelab width (%s) on the card'
+                         % walk_sizes(**WALK_CODELAB), full, full_launches))
+    log('  grid vs the CPU sweep: %.3g; %s' % (full_grid, smi))
+    return {name: small_launches[name] + full_launches[name]
+            for name in small_launches}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4751,10 +4952,11 @@ def main():
     sgd, k1_dcca = phase_sgd(torch, device, smi)
     aot = phase_aot(torch, device, smi)
     several = phase_several_devices(torch, device, smi, cohort_main)
+    walkthrough = phase_walkthrough(torch, device, smi)
     launches = {name: codelab[name] + kuleuven[name] + decoding[name] +
                 sweep[name] + cohort[name] + attention[name] +
                 raw_ingest[name] + model_files[name] + sgd[name] + aot[name]
-                + several[name] for name in kuleuven}
+                + several[name] + walkthrough[name] for name in kuleuven}
     common = dict(route='cuda', library_ms=None)
     kernels = [
         dict(name='fused_cca_decode',

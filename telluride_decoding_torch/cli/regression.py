@@ -21,9 +21,10 @@ CSV, and returns {lambda: (mean, std)}.
 
 Under a process group (TDT_COORDINATOR, TDT_NUM_PROCESSES and
 TDT_PROCESS_ID, one process a rank; ``multihost.initialize``) the sweep
-takes ``engine.default_mesh()``: the files shard over the ranks, every
-rank gets the whole grid and rank 0 writes the results. The per-cell
-path is not sharded.
+takes ``engine.default_mesh()``: the files shard over the ranks, each
+rank reads and lag-stacks only its own block (``engine.file_block``),
+every rank gets the whole grid and rank 0 writes the results. The
+per-cell path is not sharded.
 """
 
 from __future__ import annotations
@@ -291,12 +292,17 @@ class Regression:
         if use_fast_path:
             # Leave-one-out stats need all files even when reporting a
             # single test file; compute the full grid and slice below.
+            # Under a mesh each rank reads only its block of the files.
             files = all_files
+            mine, num_files = files, None
+            if mesh is not None:
+                lo, hi = engine.file_block(len(files), mesh)
+                mine, num_files = files[lo:hi], len(files)
             with self.timer.stage('read_records'):
                 if device_context_enabled():
-                    xs, ys, ctx = self._per_file_raw(test_brain_data, files)
+                    xs, ys, ctx = self._per_file_raw(test_brain_data, mine)
                 else:
-                    xs, ys = self._per_file_arrays(test_brain_data, files)
+                    xs, ys = self._per_file_arrays(test_brain_data, mine)
                     ctx = None
 
             def sweep_block(lambdas_block, file_slice):
@@ -306,12 +312,12 @@ class Regression:
                         xs, ys, lambdas_block,
                         dims=my_flags.cca_dimensions, file_names=files,
                         context=ctx, device=device, timer=self.timer,
-                        mesh=mesh)
+                        mesh=mesh, num_files=num_files)
                 else:
                     res = engine.ridge_jackknife_sweep(
                         xs, ys, lambdas_block, file_names=files,
                         context=ctx, device=device, timer=self.timer,
-                        mesh=mesh)
+                        mesh=mesh, num_files=num_files)
                 return res.correlations
 
             if checkpoint_dir:
@@ -600,5 +606,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     return 0
 
 
-if __name__ == '__main__':
+def app_main():
     sys.exit(main())
+
+
+if __name__ == '__main__':
+    app_main()

@@ -687,5 +687,9 @@ def main(argv=None) -> int:
     return 0
 
 
-if __name__ == '__main__':
+def app_main():
     sys.exit(main())
+
+
+if __name__ == '__main__':
+    app_main()

@@ -295,16 +295,16 @@ class BrainModel(torch.nn.Module):
 
 
 def load_model(model_dir: str, device) -> BrainModel:
-    """Loads a saved model of a registered (ported) class onto ``device``."""
+    """Loads a saved model of a registered class onto ``device``."""
     # Registers BrainModelCCA and BrainModelDCCA.
     from telluride_decoding_torch.models import cca  # noqa: F401
     with open(os.path.join(model_dir, 'model.json')) as f:
         meta = json.load(f)
     cls = _MODEL_REGISTRY.get(meta['model_class'])
     if cls is None:
-        raise ValueError('Model class %s is not ported to '
-                         'telluride_decoding_torch yet (ported: %s).'
-                         % (meta['model_class'], sorted(_MODEL_REGISTRY)))
+        raise ValueError('Unknown model class %s in %s (registered: %s).'
+                         % (meta['model_class'], model_dir,
+                            ', '.join(sorted(_MODEL_REGISTRY))))
     with np.load(os.path.join(model_dir, 'weights.npz')) as npz:
         flat = {k: npz[k] for k in npz.files}
     model = cls.from_numpy(flat, device, meta['config'])

@@ -6,6 +6,7 @@ from telluride_decoding_torch.sweep.engine import (
     SweepResult,
     cca_jackknife_sweep,
     cohort_summary,
+    default_mesh,
     multi_subject_sweep,
     pad_and_stack,
     per_file_stats,

@@ -41,7 +41,9 @@ the JAX package's mesh paths spread it over devices:
     contiguous blocks; each rank takes its block's moments (K2 inside
     ``device_file_moments`` under a ``ContextSpec``), one all_reduce
     makes the total, each rank solves its block's columns of the grid
-    and one gather returns the whole [L, F] grid to every rank;
+    and one gather returns the whole [L, F] grid to every rank. Given
+    ``num_files``, a rank's lists hold only its block (``file_block``),
+    so each rank reads only its own files;
   * subject-sharded (``multi_subject_sweep(mesh, subject_parallel=True)``):
     subject j goes to rank j mod W, which sweeps its subjects through the
     depth-2 pipeline (with the per-subject eig retry), and one gather of
@@ -688,28 +690,43 @@ def _mesh_file_padding(num_real: int, pad_files_to: Optional[int],
     return target if target > num_real else pad_files_to
 
 
-def _shard_over_mesh(per_file_x, per_file_y, num_files: int,
-                     mesh: mesh_lib.Mesh):
-    """This rank's contiguous block of the (padded) file axis: its real
-    files' x and y, and the block's length."""
-    per = num_files // mesh.size
-    lo = min(mesh.rank * per, len(per_file_x))
-    hi = min(lo + per, len(per_file_x))
-    return per_file_x[lo:hi], per_file_y[lo:hi], per
+def file_block(num_files: int, mesh: mesh_lib.Mesh,
+               pad_files_to: Optional[int] = None) -> Tuple[int, int]:
+    """[lo, hi): the real files in this rank's contiguous block of the
+    file axis, padded to a multiple of the mesh size. The files a rank
+    reads when it passes ``num_files`` to the sweeps; an empty range is
+    a block of padding only."""
+    padded = _mesh_file_padding(num_files, pad_files_to, mesh) or num_files
+    per = padded // mesh.size
+    lo = min(mesh.rank * per, num_files)
+    return lo, min(lo + per, num_files)
 
 
 def _file_sharded_stats(per_file_x, per_file_y, mesh: mesh_lib.Mesh,
-                        num_files: int, pad_frames_to, context,
-                        device) -> MomentStats:
-    """[num_files / size, ...] MomentStats of this rank's block of files;
-    a block of padding only is all zeros."""
-    xs, ys, per = _shard_over_mesh(per_file_x, per_file_y, num_files, mesh)
+                        num_files: int, pad_frames_to, context, device,
+                        rank_local: bool = False) -> MomentStats:
+    """[num_files / size, ...] MomentStats of this rank's block of the
+    padded file axis (``num_files`` long); a block of padding only is all
+    zeros. ``rank_local``: per_file_x/y hold only the block's real files
+    (file_block), else every file."""
+    per = num_files // mesh.size
+    if rank_local:
+        xs, ys = per_file_x, per_file_y
+        # A block of padding only has no file to take widths from: one
+        # gather of the raw widths, which every rank joins.
+        widths = torch.tensor(
+            [_ensure_2d(xs[0]).shape[1], _ensure_2d(ys[0]).shape[1]]
+            if xs else [0, 0], dtype=torch.int64)
+        dx, dy = (int(w) for w in mesh_lib.gather(widths, mesh).amax(0))
+    else:
+        lo, hi = file_block(len(per_file_x), mesh, num_files)
+        xs, ys = per_file_x[lo:hi], per_file_y[lo:hi]
+        dx = _ensure_2d(per_file_x[0]).shape[1]
+        dy = _ensure_2d(per_file_y[0]).shape[1]
     if xs:
         return per_file_stats(xs, ys, want_syy=True, pad_files_to=per,
                               pad_frames_to=pad_frames_to, context=context,
                               device=device)
-    dx = _ensure_2d(per_file_x[0]).shape[1]
-    dy = _ensure_2d(per_file_y[0]).shape[1]
     if context is not None and any(context):
         dx, dy = context.stacked_widths(dx, dy)
     return MomentStats(*(z.expand((per,) + tuple(z.shape)).clone()
@@ -748,15 +765,24 @@ def _dispatch_sweep(model: str, per_file_x, per_file_y, lambdas,
                     file_names=None, use_ridge=True, pad_files_to=None,
                     pad_frames_to=None, context=None, device='cuda',
                     timer=None, before_grid: Optional[Callable[[], None]]
-                    = None, mesh: Optional[mesh_lib.Mesh] = None
-                    ) -> _InFlightSweep:
+                    = None, mesh: Optional[mesh_lib.Mesh] = None,
+                    num_files: Optional[int] = None) -> _InFlightSweep:
     """Moments and the grid for one file set, not yet read back.
     ``before_grid`` runs between the two (the cohort pipeline finalizes
     the previous subject there, so its buffers are freed before this
     grid allocates). With ``mesh``, this rank's block of files (see the
-    module docstring)."""
+    module docstring); with ``num_files`` as well, per_file_x/y hold
+    only that block's files (file_block), so no rank reads another's."""
     device = device_policy.resolve(device)
-    num_real = len(per_file_x)
+    rank_local = mesh is not None and num_files is not None
+    num_real = num_files if rank_local else len(per_file_x)
+    if rank_local:
+        lo, hi = file_block(num_real, mesh, pad_files_to)
+        if len(per_file_x) != hi - lo:
+            raise ValueError('rank %d of %d got %d files, not its block '
+                             '[%d, %d) of %d' % (mesh.rank, mesh.size,
+                                                 len(per_file_x), lo, hi,
+                                                 num_real))
     pad_files_to = _mesh_file_padding(num_real, pad_files_to, mesh)
     per_file_y = [_ensure_2d(y) for y in per_file_y]
     if (model != 'cca' and not use_ridge
@@ -783,7 +809,7 @@ def _dispatch_sweep(model: str, per_file_x, per_file_y, lambdas,
         else:
             stacked = _file_sharded_stats(
                 per_file_x, per_file_y, mesh, pad_files_to or num_real,
-                pad_frames_to, context, device)
+                pad_frames_to, context, device, rank_local)
             total = mesh_lib.all_reduce_stats(
                 MomentStats(*(s.sum(0) for s in stacked)), mesh)
     if before_grid is not None:
@@ -827,7 +853,8 @@ def ridge_jackknife_sweep(per_file_x: Sequence, per_file_y: Sequence,
                           pad_frames_to: Optional[int] = None,
                           context: Optional[ContextSpec] = None,
                           device='cuda', timer=None,
-                          mesh: Optional[mesh_lib.Mesh] = None
+                          mesh: Optional[mesh_lib.Mesh] = None,
+                          num_files: Optional[int] = None
                           ) -> SweepResult:
     """Leave-one-file-out ridge sweep over a lambda grid.
 
@@ -840,13 +867,15 @@ def ridge_jackknife_sweep(per_file_x: Sequence, per_file_y: Sequence,
     values in [0, 1] instead. ``timer`` (a profiling.StageTimer) gets
     the stages moments, grid and, if taken, eig_retry. ``mesh`` shards
     the file axis over its ranks (a collective call; every rank gets the
-    whole grid).
+    whole grid). With ``mesh`` and ``num_files`` (the whole file count),
+    each rank passes only the files of its block, ``file_block(num_files,
+    mesh, pad_files_to)``, and ``file_names`` for all of them.
     """
     return _finalize_sweep(_dispatch_sweep(
         'ridge', per_file_x, per_file_y, lambdas, file_names=file_names,
         use_ridge=use_ridge, pad_files_to=pad_files_to,
         pad_frames_to=pad_frames_to, context=context, device=device,
-        timer=timer, mesh=mesh), timer)
+        timer=timer, mesh=mesh, num_files=num_files), timer)
 
 
 def cca_jackknife_sweep(per_file_x: Sequence, per_file_y: Sequence,
@@ -856,21 +885,23 @@ def cca_jackknife_sweep(per_file_x: Sequence, per_file_y: Sequence,
                         pad_frames_to: Optional[int] = None,
                         context: Optional[ContextSpec] = None,
                         device='cuda', timer=None,
-                        mesh: Optional[mesh_lib.Mesh] = None
+                        mesh: Optional[mesh_lib.Mesh] = None,
+                        num_files: Optional[int] = None
                         ) -> SweepResult:
     """Leave-one-file-out CCA sweep: the correlation of the first
     canonical pair on the held-out file, over a regularization grid.
 
     ``dims`` is accepted for symmetry with the CCA model but does not
     affect the sweep: the metric is the first canonical pair, as the
-    reference jackknife's cca_pearson_correlation_first. ``mesh`` shards
-    the file axis, as in ridge_jackknife_sweep.
+    reference jackknife's cca_pearson_correlation_first. ``mesh`` and
+    ``num_files`` shard the file axis, as in ridge_jackknife_sweep.
     """
     del dims
     return _finalize_sweep(_dispatch_sweep(
         'cca', per_file_x, per_file_y, lambdas, file_names=file_names,
         pad_files_to=pad_files_to, pad_frames_to=pad_frames_to,
-        context=context, device=device, timer=timer, mesh=mesh), timer)
+        context=context, device=device, timer=timer, mesh=mesh,
+        num_files=num_files), timer)
 
 
 def _pipelined_sweep(items, lambdas, model: str, use_ridge: bool,

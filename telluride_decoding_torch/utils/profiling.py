@@ -4,6 +4,9 @@ StageTimer is the JAX package's host timer, copied: named-stage
 wall-clock sums with a one-line-per-stage report, used by the experiment
 driver. ``trace`` writes a ``torch.profiler`` Chrome trace of a block,
 the counterpart of the JAX package's ``jax.profiler`` trace.
+``timed_block`` times one block, copied too; on the card pass
+``torch.cuda.synchronize`` as ``sync`` (as a JAX caller passes a
+``block_until_ready``), or queued kernels go untimed.
 """
 
 from __future__ import annotations
@@ -77,3 +80,21 @@ def trace(log_dir: Optional[str], cuda: bool = False):
         yield
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, 'trace.json'))
+
+
+@contextlib.contextmanager
+def timed_block(label: str, results: Optional[Dict[str, float]] = None,
+                sync: Optional[Callable[[], None]] = None,
+                verbose: bool = False):
+    """Wall-clock seconds of the block, ``sync`` called before the clock
+    stops; stored as ``results[label]`` and printed in ms if
+    ``verbose``."""
+    start = time.perf_counter()
+    yield
+    if sync is not None:
+        sync()
+    elapsed = time.perf_counter() - start
+    if results is not None:
+        results[label] = elapsed
+    if verbose:
+        print('%s: %.1f ms' % (label, elapsed * 1000))

@@ -15,7 +15,8 @@ Tolerances, each with its reason:
     own largest trial, so a ragged cohort's float32 grids differ in their
     last bits from the whole cohort's;
   * the regression driver's grid from a group, 2e-4 against one process
-    (tests/test_parallel.py:161): file moments summed over the ranks.
+    (tests/test_parallel.py:161): file moments summed over the ranks; the
+    group's ranks read only their own blocks of the files.
 """
 
 import os
@@ -262,3 +263,60 @@ def test_drivers_under_a_process_group(tmp_path, rng):
                     out['api/%s/%s' % (streaming, name)],
                     result.correlations, rtol=0, atol=SWEEP_TOL,
                     err_msg=name)
+
+
+REGRESSION_BLOCK_BODY = '''
+import os
+from telluride_decoding_torch.cli import regression
+from telluride_decoding_torch.data import records
+opened = []
+real_read = records.read_tfrecords
+records.read_tfrecords = (lambda path, *args, **kwargs:
+                          opened.append(os.path.basename(path)) or
+                          real_read(path, *args, **kwargs))
+base = str(inputs['base'])
+assert regression.main(list(inputs['argv']) + [
+    '--summary_base_dir', '%s/summary_%d' % (base, RANK),
+    '--results_csv_file', '%s/grid_%d.csv' % (base, RANK)]) == 0
+out['opened'] = np.asarray(opened, dtype=str)
+'''
+
+
+@pytest.mark.parametrize('test_name,device_context', [
+    ('jens_memory_linear', '1'), ('jens_memory_linear', '0'),
+    ('jens_memory_cca', '1')])
+def test_regression_group_reads_only_its_block(tmp_path, rng, monkeypatch,
+                                               test_name, device_context):
+    """cli.regression in a group of 3 ranks on 4 files, which pad to 6:
+    rank r reads (read_tfrecords, the whole-file reader) only the files of
+    its block, [0, 2), [2, 4) and none for rank 2, whose block is padding
+    only and still joins the collectives; rank 0's CSV is the single
+    process's within 2e-4 (SWEEP_TOL). Raw streams with the lags stacked
+    in the engine (TDT_DEVICE_CONTEXT=1) and host-stacked files (0), and
+    the CCA grid."""
+    from test_torch_parallel import subprocess_env
+    root = write_cohort_tree(tmp_path, rng, num_subjects=1, trials=4)
+    data_dir = os.path.join(root, 'subject00')
+    argv = ['--device', 'cpu', '--tfexample_dir', data_dir, '--test_name',
+            test_name, '--post_context', '4', '--regularization_list',
+            LAMBDAS]
+    env = dict(subprocess_env(), TDT_DEVICE_CONTEXT=device_context)
+    outputs = run_group(str(tmp_path / 'group'), REGRESSION_BLOCK_BODY,
+                        dict(base=np.asarray(str(tmp_path)),
+                             argv=np.asarray(argv)), world=3, env=env)
+    files = sorted(os.listdir(data_dir))
+    assert len(files) == 4
+    for rank, block in enumerate((files[0:2], files[2:4], [])):
+        assert sorted(outputs[rank]['opened'].tolist()) == block, rank
+    for rank in (1, 2):
+        assert not os.path.exists(tmp_path / ('grid_%d.csv' % rank))
+
+    monkeypatch.setenv('TDT_DEVICE_CONTEXT', device_context)
+    assert regression.main(argv + [
+        '--summary_base_dir', str(tmp_path / 'summary_single'),
+        '--results_csv_file', str(tmp_path / 'single.csv')]) == 0
+    group_grid = np.genfromtxt(tmp_path / 'grid_0.csv', delimiter=',')
+    single_grid = np.genfromtxt(tmp_path / 'single.csv', delimiter=',')
+    assert group_grid.shape == single_grid.shape == (3, 5)
+    np.testing.assert_allclose(group_grid, single_grid, rtol=0,
+                               atol=SWEEP_TOL)
