@@ -30,6 +30,10 @@ the LDA reduction). An artifact serves with the reduction it was exported
 with: an explicit ``--serve_reduction`` that differs is refused, as in
 the JAX package. An artifact of the JAX package (a StableHLO program,
 ``infer_pair.shlo``) cannot run in PyTorch and is refused.
+``--trace_dir D`` runs any mode under a torch.profiler trace written to
+``D/trace.json``: each push's spans (``serve.push``, the context
+buffers, the decoder's copies and launch, the window store and the
+decision rule) drawn over K1, S1 and the copies.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from telluride_decoding_torch.decide import attention_decoder
 from telluride_decoding_torch.decode import aot, infer_decoder
 from telluride_decoding_torch.decode.result_store import TwoResultStore
 from telluride_decoding_torch.ops.lagstack import lag_stack_np
+from telluride_decoding_torch.utils import profiling
 
 REDUCTIONS = ('first', 'second', 'mean', 'mean-squared', 'lda')
 DECISIONS = ('wta', 'stepped', 'ssd')
@@ -171,6 +176,7 @@ class StreamingAttentionServer:
         self._window_step = window_step
         self._frame_rate = frame_rate
         self._windows_emitted = 0
+        self._pushes = 0
 
     def push(self, eeg: np.ndarray, audio1: np.ndarray,
              audio2: np.ndarray) -> List[Dict]:
@@ -179,6 +185,23 @@ class StreamingAttentionServer:
         The three fields must carry the same frame count: a ragged chunk
         would skew every later window, so it raises before buffering."""
         t0 = time.perf_counter()
+        request, self._pushes = self._pushes, self._pushes + 1
+        with profiling.span('serve.push', request):
+            with profiling.span('serve.context'):
+                rows = self._context_rows(eeg, audio1, audio2)
+            prev, self._inflight = self._inflight, None
+            if rows is not None:
+                if self._pipeline:
+                    self._inflight = (self._decoder.infer_pair_async(*rows),
+                                      t0)
+                else:
+                    prev = (self._decoder.infer_pair(*rows), t0)
+            return self._harvest(prev, t0)
+
+    def _context_rows(self, eeg, audio1, audio2) -> Optional[tuple]:
+        """The chunk through the context buffers and queues: the rows
+        every stream has completed, as infer_pair's (stacked eeg, two
+        stacked audio, two raw audio), or None."""
         eeg = np.atleast_2d(np.asarray(eeg, np.float32))
         audio1 = np.atleast_2d(np.asarray(audio1, np.float32))
         audio2 = np.atleast_2d(np.asarray(audio2, np.float32))
@@ -198,21 +221,14 @@ class StreamingAttentionServer:
         n = min(self._pend_eeg.shape[0], self._pend_a1.shape[0],
                 self._pend_a2.shape[0], self._q1.shape[0],
                 self._q2.shape[0])
-        prev, self._inflight = self._inflight, None
-        if n:
-            stacked, self._pend_eeg = (self._pend_eeg[:n],
-                                       self._pend_eeg[n:])
-            a1_ctx, self._pend_a1 = self._pend_a1[:n], self._pend_a1[n:]
-            a2_ctx, self._pend_a2 = self._pend_a2[:n], self._pend_a2[n:]
-            y1, self._q1 = self._q1[:n], self._q1[n:]
-            y2, self._q2 = self._q2[:n], self._q2[n:]
-            if self._pipeline:
-                self._inflight = (self._decoder.infer_pair_async(
-                    stacked, a1_ctx, a2_ctx, y1, y2), t0)
-            else:
-                prev = (self._decoder.infer_pair(stacked, a1_ctx, a2_ctx,
-                                                 y1, y2), t0)
-        return self._harvest(prev, t0)
+        if not n:
+            return None
+        stacked, self._pend_eeg = self._pend_eeg[:n], self._pend_eeg[n:]
+        a1_ctx, self._pend_a1 = self._pend_a1[:n], self._pend_a1[n:]
+        a2_ctx, self._pend_a2 = self._pend_a2[:n], self._pend_a2[n:]
+        y1, self._q1 = self._q1[:n], self._q1[n:]
+        y2, self._q2 = self._q2[:n], self._q2[n:]
+        return stacked, a1_ctx, a2_ctx, y1, y2
 
     def flush(self) -> List[Dict]:
         """Harvests the chunk still in flight at stream end (the
@@ -223,17 +239,22 @@ class StreamingAttentionServer:
     def _harvest(self, prev, t0: float) -> List[Dict]:
         if prev is not None:
             (s1, s2), t0 = prev
-            self._store.add_data(np.asarray(s1).reshape(-1, 1),
-                                 np.asarray(s2).reshape(-1, 1))
-        # Latency counts from the push that dispatched the windows' chunk.
-        return self._drain(t0)
+            # Pipelined: waits for the chunk's copies (decoder.copy_out).
+            s1, s2 = np.asarray(s1), np.asarray(s2)
+        with profiling.span('serve.store'):
+            if prev is not None:
+                self._store.add_data(s1.reshape(-1, 1), s2.reshape(-1, 1))
+            # Latency counts from the push that dispatched the windows'
+            # chunk.
+            return self._drain(t0)
 
     def _drain(self, t0: float) -> List[Dict]:
         decisions = []
         for w1, w2 in self._store.next_window():
             c1 = float(np.mean(w1))
             c2 = float(np.mean(w2))
-            att = self._decide.attention(c1, c2)
+            with profiling.span('decide.window'):
+                att = self._decide.attention(c1, c2)
             center = (self._windows_emitted * self._window_step +
                       self._window_width / 2.0)
             decisions.append({
@@ -552,6 +573,9 @@ _FLAGS = [
     ('serve_device', str, 'cuda', None,
      'torch device to decode on (cuda, or cpu for the plain versions of '
      'the kernels).'),
+    ('trace_dir', str, None, None,
+     'Write a torch.profiler trace of the experiment here '
+     '(trace.json).'),
 ]
 
 
@@ -575,6 +599,12 @@ def parse_args(argv: Optional[List[str]]) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
+    with profiling.trace(args.trace_dir, cuda=torch.device(
+            args.serve_device).type == 'cuda'):
+        return _serve(args)
+
+
+def _serve(args: argparse.Namespace) -> int:
     tcp_mode = (not args.selftest and args.serve_input.startswith('tcp://'))
     common = dict(device=args.serve_device, reduction=args.serve_reduction,
                   decision=args.serve_decoder,

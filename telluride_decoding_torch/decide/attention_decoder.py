@@ -26,6 +26,7 @@ from telluride_decoding_torch.ops.ssd_update import (  # noqa: F401
     SsdConstants, SsdState, WindowLauncher, constants_views, pack,
     ssd_sequence, ssd_update, ssd_update_reference, stack_streams,
     state_views)
+from telluride_decoding_torch.utils import profiling
 
 
 class AttentionDecoder:
@@ -170,7 +171,8 @@ class StateSpaceAttentionDecoder(AttentionDecoder):
                 torch.from_numpy(self._r2_buf.copy()), self._constants(),
                 self.outer_iter, self.inner_iter, self.newton_iter,
                 self.k_w)
-            return float(z[at]), float(eta[at])
+            with profiling.span('s1.wait'):
+                return float(z[at]), float(eta[at])
         self._r_host[0].numpy()[:] = self._r1_buf
         self._r_host[1].numpy()[:] = self._r2_buf
         if self._launch is None:
@@ -180,10 +182,12 @@ class StateSpaceAttentionDecoder(AttentionDecoder):
                 self.newton_iter, self.k_w, decision=self._decision_host,
                 at=at)
         self._launch()
-        self._done.record()
-        self._done.synchronize()
-        z, eta = self._decision_host.numpy()
-        return float(z), float(eta)
+        with profiling.span('s1.wait'):
+            self._done.record()
+            profiling.host_wait(self.device)
+            self._done.synchronize()
+            z, eta = self._decision_host.numpy()
+            return float(z), float(eta)
 
     def attention(self, r1, r2):
         """Processes one new correlation pair; returns (p, lower, upper).

@@ -37,6 +37,7 @@ from telluride_decoding_torch.ops.decode_kernel import (FoldedDecode,
                                                         fused_cca_decode,
                                                         kernel_operands)
 from telluride_decoding_torch.solvers import lda as scaled_lda
+from telluride_decoding_torch.utils import profiling
 
 CorrelationParamsTuple = collections.namedtuple('CorrelationParamsTuple', [
     'count', 'sum_x', 'sum_y', 'sum_x2', 'sum_y2', 'mean_x', 'mean_y',
@@ -135,14 +136,17 @@ class PendingScores:
     """One score vector on its way to the host; ``np.asarray`` waits for
     the copy's event."""
 
-    def __init__(self, host: torch.Tensor, done):
+    def __init__(self, host: torch.Tensor, done, device: torch.device):
         self._host = host
         self._done = done
+        self._host_device = device      # The card the copy comes from.
 
     def __array__(self, dtype=None, copy=None):
         del copy
-        self._done.synchronize()
-        return np.asarray(self._host.numpy(), dtype=dtype)
+        with profiling.span('decoder.copy_out'):
+            profiling.host_wait(self._host_device)
+            self._done.synchronize()
+            return np.asarray(self._host.numpy(), dtype=dtype)
 
 
 class PendingPair:
@@ -157,7 +161,8 @@ class PendingPair:
             host.copy_(s, non_blocking=True)
             hosts.append(host)
         done.record()
-        self._pending = tuple(PendingScores(h, done) for h in hosts)
+        self._pending = tuple(PendingScores(h, done, s.device)
+                              for h, s in zip(hosts, scores))
 
     def __iter__(self):
         return iter(self._pending)
@@ -363,7 +368,10 @@ class Decoder:
         return x1, x2s
 
     def _tensor(self, value) -> torch.Tensor:
-        """A float32 input on this decoder's device."""
+        """A float32 input on this decoder's device; from host memory to
+        the card, a blocking copy."""
+        if not (isinstance(value, torch.Tensor) and value.is_cuda):
+            profiling.host_wait(self._device)
         return device_policy.as_tensor(value, self._device,
                                        torch.float32).contiguous()
 
@@ -425,16 +433,25 @@ class Decoder:
                                  [output])
         return scores.cpu().numpy()
 
+    def _pair_scores(self, input_1, input_2a, input_2b, output_a,
+                     output_b) -> List[torch.Tensor]:
+        with profiling.span('decoder.copy_in'):
+            x1 = self._tensor(input_1)
+            x2s = [self._tensor(input_2a), self._tensor(input_2b)]
+        with profiling.span('decoder.launch'):
+            return self._scores(x1, x2s, [output_a, output_b])
+
     def infer_pair(self, input_1, input_2a, input_2b, output_a,
                    output_b) -> Tuple[np.ndarray, np.ndarray]:
         """Scores BOTH candidate streams against one brain window; with
         the fused decode, one kernel launch reads input_1 once.
         Value-identical to two infer_one calls."""
-        scores_a, scores_b = self._scores(
-            self._tensor(input_1),
-            [self._tensor(input_2a), self._tensor(input_2b)],
-            [output_a, output_b])
-        return scores_a.cpu().numpy(), scores_b.cpu().numpy()
+        with profiling.span('decoder.infer_pair'):
+            scores_a, scores_b = self._pair_scores(
+                input_1, input_2a, input_2b, output_a, output_b)
+            with profiling.span('decoder.copy_out'):
+                profiling.host_wait(self._device, 2)
+                return scores_a.cpu().numpy(), scores_b.cpu().numpy()
 
     def infer_pair_async(self, input_1, input_2a, input_2b, output_a,
                          output_b):
@@ -447,13 +464,13 @@ class Decoder:
         returns a PendingPair: unpacking it gives two score handles that
         ``np.asarray`` turns into arrays after waiting on the event, and
         ``harvest()`` gives both. On the CPU it returns the two arrays."""
-        scores = self._scores(
-            self._tensor(input_1),
-            [self._tensor(input_2a), self._tensor(input_2b)],
-            [output_a, output_b])
-        if self._device.type != 'cuda':
-            return tuple(s.numpy() for s in scores)
-        return PendingPair(scores)
+        with profiling.span('decoder.infer_pair'):
+            scores = self._pair_scores(input_1, input_2a, input_2b,
+                                       output_a, output_b)
+            if self._device.type != 'cuda':
+                with profiling.span('decoder.copy_out'):
+                    return tuple(s.numpy() for s in scores)
+            return PendingPair(scores)
 
     # -- training ------------------------------------------------------------------
 

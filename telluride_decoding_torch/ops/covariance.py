@@ -73,6 +73,12 @@ def _chunk_moments(x: torch.Tensor, y: torch.Tensor,
                    want_syy: bool) -> MomentStats:
     x = x.float()
     y = y.float()
+    if x.is_cuda:
+        # The count below is a host scalar copied to the card: a blocking
+        # copy from pageable memory. (Imported here: utils imports this
+        # module through data.)
+        from telluride_decoding_torch.utils import profiling
+        profiling.host_wait(x.device)
     syy = (y.T @ y if want_syy else
            torch.zeros((y.shape[1], y.shape[1]), dtype=torch.float32,
                        device=y.device))

@@ -58,7 +58,7 @@ than one rank, so one process keeps the serial paths bit for bit.
 
 from __future__ import annotations
 
-import contextlib
+import itertools
 import logging
 import os
 from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
@@ -78,11 +78,14 @@ from telluride_decoding_torch.parallel import mesh as mesh_lib
 from telluride_decoding_torch.solvers.cca import cca_covariances_from_stats
 from telluride_decoding_torch.solvers.ridge import (_augmented_moments,
                                                     solve_ridge_from_moments)
+from telluride_decoding_torch.utils import profiling
 
 # The eig program amortizes one eigendecomposition per file over the
 # grid from this many lambdas on (the JAX package's crossover, measured
 # on a TPU v5e; engine.py:622-632).
 EIG_MIN_LAMBDAS = 24
+# Each sweep's index, the ``request`` of its spans.
+_SWEEPS = itertools.count()
 
 
 def _ensure_2d(a):
@@ -100,6 +103,10 @@ def _host(a) -> np.ndarray:
 
 
 def _to_device(a, device) -> torch.Tensor:
+    """``a`` on ``device``; from host memory to the card, a blocking
+    copy."""
+    if not (isinstance(a, torch.Tensor) and a.is_cuda):
+        profiling.host_wait(device)
     return device_policy.as_tensor(a, device, torch.float32)
 
 
@@ -132,13 +139,17 @@ class SweepResult(NamedTuple):
     test_files: List[str]      # file per column
 
 
-def _stage(timer, name: str, device: torch.device):
-    """``timer.stage(name)`` with the device synchronised at its end,
-    or nothing without a timer."""
+def _stage(timer, name: str, device: torch.device, request: int):
+    """The span ``sweep.<name>``; with a timer, ``timer.stage(name)``
+    with the device synchronised at its end as well."""
     if timer is None:
-        return contextlib.nullcontext()
-    sync = torch.cuda.synchronize if device.type == 'cuda' else None
-    return timer.stage(name, sync=sync)
+        return profiling.span('sweep.' + name, request)
+
+    def sync():
+        profiling.host_wait(device)
+        torch.cuda.synchronize()
+    return timer.stage(name, sync=sync if device.type == 'cuda' else None,
+                       span_name='sweep.' + name, request=request)
 
 
 def _stack_stats(stats_list: Sequence[MomentStats]) -> MomentStats:
@@ -160,20 +171,21 @@ def pad_and_stack(arrays: Sequence, pad_frames_to: Optional[int] = None,
     max_n = max(max(a.shape[0] for a in arrays), pad_frames_to or 0)
     num_f = max(len(arrays), pad_files_to or 0)
     width = arrays[0].shape[1]
-    mask = np.zeros((num_f, max_n), np.float32)
-    for i, a in enumerate(arrays):
-        mask[i, :a.shape[0]] = 1.0
-    if all(isinstance(a, torch.Tensor) for a in arrays):
-        stacked = torch.zeros((num_f, max_n, width), dtype=torch.float32,
-                              device=device)
+    with profiling.span('sweep.upload'):
+        mask = np.zeros((num_f, max_n), np.float32)
         for i, a in enumerate(arrays):
-            stacked[i, :a.shape[0]] = a.to(device, torch.float32)
-    else:
-        host = np.zeros((num_f, max_n, width), np.float32)
-        for i, a in enumerate(arrays):
-            host[i, :a.shape[0]] = _host(a)
-        stacked = _to_device(host, device)
-    return stacked, _to_device(mask, device)
+            mask[i, :a.shape[0]] = 1.0
+        if all(isinstance(a, torch.Tensor) for a in arrays):
+            stacked = torch.zeros((num_f, max_n, width),
+                                  dtype=torch.float32, device=device)
+            for i, a in enumerate(arrays):
+                stacked[i, :a.shape[0]] = _to_device(a, device)
+        else:
+            host = np.zeros((num_f, max_n, width), np.float32)
+            for i, a in enumerate(arrays):
+                host[i, :a.shape[0]] = _host(a)
+            stacked = _to_device(host, device)
+        return stacked, _to_device(mask, device)
 
 
 def _batched_moments(x: torch.Tensor, y: torch.Tensor, want_syy: bool,
@@ -193,12 +205,13 @@ def _batched_moments(x: torch.Tensor, y: torch.Tensor, want_syy: bool,
 def _uniform_file_moments(xs, ys, want_syy: bool, device) -> MomentStats:
     """Per-file MomentStats for files that all share one length: the raw
     [F, N, D] stack, no padding or masks, count N."""
-    if all(isinstance(a, torch.Tensor) for a in list(xs) + list(ys)):
-        x = torch.stack([a.to(device, torch.float32) for a in xs])
-        y = torch.stack([a.to(device, torch.float32) for a in ys])
-    else:
-        x = _to_device(np.stack([_host(a) for a in xs]), device)
-        y = _to_device(np.stack([_host(a) for a in ys]), device)
+    with profiling.span('sweep.upload'):
+        if all(isinstance(a, torch.Tensor) for a in list(xs) + list(ys)):
+            x = torch.stack([_to_device(a, device) for a in xs])
+            y = torch.stack([_to_device(a, device) for a in ys])
+        else:
+            x = _to_device(np.stack([_host(a) for a in xs]), device)
+            y = _to_device(np.stack([_host(a) for a in ys]), device)
     count = torch.full((x.shape[0],), float(x.shape[1]),
                        dtype=torch.float32, device=device)
     return _batched_moments(x, y, want_syy, count)
@@ -252,7 +265,8 @@ def _device_stack_one(raw, pre: int, post: int, rows: int, device
     version on the CPU) straight into the buffer the moments read. Rows
     below the file's n_i equal lag_stack_np's; the moments mask the rest.
     """
-    raw = _to_device(raw, device)
+    with profiling.span('sweep.upload'):
+        raw = _to_device(raw, device)
     padded = torch.zeros((max(rows, raw.shape[0]), raw.shape[1]),
                          dtype=torch.float32, device=device)
     padded[:raw.shape[0]] = raw
@@ -376,8 +390,9 @@ def per_file_stats(per_file_x: Sequence, per_file_y: Sequence,
                              device=device)
             yp = torch.zeros((padded, y.shape[1]), dtype=torch.float32,
                              device=device)
-            xp[:n] = _to_device(x, device)
-            yp[:y.shape[0]] = _to_device(y, device)
+            with profiling.span('sweep.upload'):
+                xp[:n] = _to_device(x, device)
+                yp[:y.shape[0]] = _to_device(y, device)
         valid = (torch.arange(padded, device=device) < n).float()
         stats_list.append(blocked_moments(xp, yp, want_syy=want_syy,
                                           valid=valid, block=frame_bucket))
@@ -430,7 +445,10 @@ def _chunked_lam_map(eval_chunk: Callable[[torch.Tensor], torch.Tensor],
     to keep one program shape; here the last chunk is just shorter,
     which computes the same cells.
     """
-    return torch.cat([eval_chunk(lambdas[start:start + chunk])
+    def timed(lams):
+        with profiling.span('sweep.lam_chunk'):
+            return eval_chunk(lams)
+    return torch.cat([timed(lambdas[start:start + chunk])
                       for start in range(0, lambdas.shape[0], chunk)])
 
 
@@ -518,6 +536,9 @@ def _svd_uv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     result through the factor."""
     finite = torch.isfinite(t).all(-1).all(-1)
     t = torch.where(finite[..., None, None], t, torch.zeros_like(t))
+    # Reads back to the host twice on the card (torch 2.11, as
+    # torch.cuda.set_sync_debug_mode reports).
+    profiling.host_wait(t.device, 2)
     u, _, vt = torch.linalg.svd(t, full_matrices=False)
     return u, vt
 
@@ -737,6 +758,7 @@ def _gathered_grid(corr: torch.Tensor,
                    mesh: Optional[mesh_lib.Mesh]) -> np.ndarray:
     """The whole [L, F] grid on the host: every rank's [L, F / size]
     block side by side (one all_gather), or ``corr`` itself."""
+    profiling.host_wait(corr.device)
     if mesh is None:
         return corr.cpu().numpy()
     blocks = mesh_lib.gather(corr, mesh)
@@ -759,6 +781,7 @@ class _InFlightSweep(NamedTuple):
     model: str                 # 'ridge' | 'cca'
     use_ridge: bool
     mesh: Optional[mesh_lib.Mesh]
+    request: int = -1          # The sweep's index (its spans' request).
 
 
 def _dispatch_sweep(model: str, per_file_x, per_file_y, lambdas,
@@ -797,9 +820,9 @@ def _dispatch_sweep(model: str, per_file_x, per_file_y, lambdas,
             'path (solvers.ridge.calculate_linear_regressor_'
             'parameters) for lamb=-1, or pass explicit shrinkage '
             'values in [0, 1].')
-    lambdas_arr = torch.as_tensor(np.asarray(lambdas, np.float32),
-                                  device=device)
-    with _stage(timer, 'moments', device):
+    request = next(_SWEEPS)
+    lambdas_arr = _to_device(np.asarray(lambdas, np.float32), device)
+    with _stage(timer, 'moments', device, request):
         if mesh is None:
             stacked = per_file_stats(per_file_x, per_file_y, want_syy=True,
                                      pad_files_to=pad_files_to,
@@ -814,7 +837,7 @@ def _dispatch_sweep(model: str, per_file_x, per_file_y, lambdas,
                 MomentStats(*(s.sum(0) for s in stacked)), mesh)
     if before_grid is not None:
         before_grid()
-    with _stage(timer, 'grid', device):
+    with _stage(timer, 'grid', device, request):
         if model == 'cca':
             corr = _cca_sweep_program_chol(stacked, total, lambdas_arr)
         else:
@@ -822,14 +845,15 @@ def _dispatch_sweep(model: str, per_file_x, per_file_y, lambdas,
                                         use_ridge=use_ridge)
     return _InFlightSweep(corr, stacked, total, np.asarray(lambdas),
                           lambdas_arr, num_real, file_names, model,
-                          use_ridge, mesh)
+                          use_ridge, mesh, request)
 
 
 def _finalize_sweep(inflight: _InFlightSweep, timer=None) -> SweepResult:
     """Reads the grid back (gathered from every rank under a mesh);
     applies the NaN -> eig fallback, which every rank then takes alike."""
     num_real = inflight.num_real
-    corr = _gathered_grid(inflight.corr, inflight.mesh)
+    with profiling.span('sweep.readback', inflight.request):
+        corr = _gathered_grid(inflight.corr, inflight.mesh)
     # Rank-deficient covariance with lamb == 0 breaks Cholesky: the eig
     # programs zero degenerate directions instead (the pseudoinverse
     # answer). Only ridge and CCA have an eig program; shrinkage keeps
@@ -837,7 +861,8 @@ def _finalize_sweep(inflight: _InFlightSweep, timer=None) -> SweepResult:
     retry = (_cca_sweep_program if inflight.model == 'cca' else
              _ridge_eig_program if inflight.use_ridge else None)
     if retry is not None and not np.isfinite(corr[:, :num_real]).all():
-        with _stage(timer, 'eig_retry', inflight.corr.device):
+        with _stage(timer, 'eig_retry', inflight.corr.device,
+                    inflight.request):
             corr = _gathered_grid(retry(inflight.stacked, inflight.total,
                                         inflight.lambdas_arr), inflight.mesh)
     return SweepResult(corr[:, :num_real], inflight.lambdas,
