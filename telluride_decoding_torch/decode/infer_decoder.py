@@ -7,7 +7,10 @@ rotate both inputs, form the normalized correlation, project through the
 LDA, one score per frame (windows of T = 1). For a deep CCA model K1 runs
 on the towers' outputs (plain matrix products in torch first), with the
 model's final CCA as its rotations. ``infer_pair`` scores both audio
-streams against one read of the brain window. ``frame_scores``
+streams against one read of the brain window; on the card, a push of
+host arrays whose shape was seen before replays a resident push plan
+(decode/push_plan.py): one copy in, K1 and one copy out as one CUDA
+graph, and one wait. ``frame_scores``
 scores a whole test split in one ``infer_one`` call, so its K1 launch
 covers every frame of the split. The other reductions, and the linear
 regression decoder, run as plain torch, as ``_reduce`` does in the JAX
@@ -29,13 +32,14 @@ import numpy as np
 import torch
 
 from telluride_decoding_torch import device as device_policy
-from telluride_decoding_torch.decode import result_store
+from telluride_decoding_torch.decode import push_plan, result_store
 from telluride_decoding_torch.decode.metrics import (average_data,
                                                      calculate_dprime)
 from telluride_decoding_torch.ops.decode_kernel import (FoldedDecode,
                                                         fold_decode_params,
                                                         fused_cca_decode,
-                                                        kernel_operands)
+                                                        kernel_operands,
+                                                        prepared_operands)
 from telluride_decoding_torch.solvers import lda as scaled_lda
 from telluride_decoding_torch.utils import profiling
 
@@ -196,6 +200,7 @@ class Decoder:
         # (model identity, params_version) the cached pipeline was built
         # against: a refit bumps the version.
         self._built_key: Any = None
+        self._push_plans = push_plan.PushPlans()
         self.reset_correlation_statistics()
 
     # -- properties -----------------------------------------------------------
@@ -367,6 +372,10 @@ class Decoder:
         """What kernel K1 rotates: the inputs themselves."""
         return x1, x2s
 
+    def _has_towers(self) -> bool:
+        """Whether ``_kernel_inputs`` runs towers on the inputs."""
+        return False
+
     def _tensor(self, value) -> torch.Tensor:
         """A float32 input on this decoder's device; from host memory to
         the card, a blocking copy."""
@@ -441,17 +450,56 @@ class Decoder:
         with profiling.span('decoder.launch'):
             return self._scores(x1, x2s, [output_a, output_b])
 
+    def _plan_key(self, input_1, input_2a, input_2b):
+        """(key, operands, folded) of the resident push plan for these
+        inputs, or None where the plan does not apply: a decoder off the
+        card, a pipeline without K1 (no CCA model with the LDA
+        reduction), a model with towers, or inputs that are not numpy
+        arrays of [rows, F1] and [rows, F2] with rows >= 1."""
+        if self._device.type != 'cuda' or not all(
+                isinstance(v, np.ndarray)
+                for v in (input_1, input_2a, input_2b)):
+            return None
+        self._invalidate_stale_pipelines()
+        if self._pipeline is None:
+            self._pipeline = self._build_pipeline()
+        folded = self._pipeline.folded
+        if folded is None or self._has_towers():
+            return None
+        rows, f1, f2 = (input_1.shape[0], folded.rot1.shape[0],
+                        folded.rot2.shape[0])
+        if not (rows and input_1.shape == (rows, f1)
+                and input_2a.shape == input_2b.shape == (rows, f2)):
+            return None
+        operands = prepared_operands(folded, torch.float32)
+        return (rows, f1, f2, operands.pointers), operands, folded
+
     def infer_pair(self, input_1, input_2a, input_2b, output_a,
                    output_b) -> Tuple[np.ndarray, np.ndarray]:
         """Scores BOTH candidate streams against one brain window; with
         the fused decode, one kernel launch reads input_1 once.
-        Value-identical to two infer_one calls."""
+        Value-identical to two infer_one calls.
+
+        Where ``_plan_key`` finds a plan's key seen before, the push
+        replays that resident plan (decode/push_plan.py), captured on
+        the key's second sight; the scores are the same bits."""
         with profiling.span('decoder.infer_pair'):
+            found = self._plan_key(input_1, input_2a, input_2b)
+            if found is not None:
+                key, operands, folded = found
+                plan = self._push_plans.plan(
+                    key, operands, lambda: push_plan.PushPlan(
+                        folded, operands, *key[:3], self._device))
+                if plan is not None:
+                    return plan.run(input_1, input_2a, input_2b)
             scores_a, scores_b = self._pair_scores(
                 input_1, input_2a, input_2b, output_a, output_b)
             with profiling.span('decoder.copy_out'):
                 profiling.host_wait(self._device, 2)
-                return scores_a.cpu().numpy(), scores_b.cpu().numpy()
+                scores = scores_a.cpu().numpy(), scores_b.cpu().numpy()
+            if found is not None:
+                self._push_plans.saw(found[0])
+            return scores
 
     def infer_pair_async(self, input_1, input_2a, input_2b, output_a,
                          output_b):
@@ -696,10 +744,13 @@ class CCADecoder(Decoder):
     def _kernel_inputs(self, x1, x2s):
         """The inputs, or a deep CCA model's tower outputs (h1 of input_1,
         h2 of each input_2 stream)."""
-        tower = getattr(self._decoding_model, 'tower', None)
-        if tower is None:
+        if not self._has_towers():
             return x1, x2s
+        tower = self._decoding_model.tower
         return tower(1, x1), [tower(2, x2) for x2 in x2s]
+
+    def _has_towers(self):
+        return getattr(self._decoding_model, 'tower', None) is not None
 
 
 def create_decoder(model_tag: str, reduction: str = 'lda', model=None, *,

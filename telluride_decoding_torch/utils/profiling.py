@@ -11,11 +11,13 @@ the counterpart of the JAX package's ``jax.profiler`` trace.
 
 The port's one span and counter recorder: ``span(name, request)`` around
 a piece of host work, ``count(name, n)`` (``host_wait`` for the counter
-``host_waits``, each place the host blocks on the card), ``recorded()``
-and ``reset()``. It records while a torch profiler runs, and only then:
-``torch.profiler.profile`` (the benchmark's traced slice) or ``trace``
-(an operator's ``--trace_dir``). Off, a span costs one read of torch's
-own flag and hands back a shared no-op. On, each span keeps (name,
+``host_waits``, each place the host blocks on the card; ``GRAPH_REPLAYS``
+and ``GRAPH_CAPTURES`` for the decoder's resident push plans,
+decode/push_plan.py), ``recorded()`` and ``reset()``. It records while a
+torch profiler runs, and only then: ``torch.profiler.profile`` (the
+benchmark's traced slice) or ``trace`` (an operator's ``--trace_dir``).
+Off, a span costs one read of torch's own flag and hands back a shared
+no-op. On, each span keeps (name,
 start_ns, end_ns, parent, request) in memory, ``parent`` the index of
 the enclosing span (-1 at the top) and ``request`` the push or sweep it
 belongs to (inherited from the parent when not given); past ``CAP``
@@ -40,6 +42,9 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import torch.autograd.profiler as _autograd_profiler
 
 HOST_WAITS = 'host_waits'
+# Pushes served by replaying a resident plan's CUDA graph, and captures.
+GRAPH_REPLAYS = 'decoder.graph_replays'
+GRAPH_CAPTURES = 'decoder.graph_captures'
 DROPPED = 'dropped'
 CAP = 1 << 20
 _clock = time.time_ns

@@ -20,6 +20,8 @@ plain version on the card from the same state (every operation rounded
 alike; only the four window sums run in another order, and twenty EM
 rounds of Newton steps amplify that). S1's sequence form against its
 window form: bit for bit (the same device function on the same inputs).
+The decoder's resident push plan against the decoder's path without it:
+bit for bit (K1's launch on the same inputs and operands).
 """
 
 import numpy as np
@@ -960,3 +962,176 @@ def test_artifact_on_card_equals_live_decoder(cuda, tmp_path, export_on):
         pending = exported.infer_pair_async(*args)
         for g, w in zip(pending.harvest(), got):
             np.testing.assert_array_equal(g, w)
+
+
+# -- the decoder's resident push plans (decode/push_plan.py) -----------------
+
+PLAN_WIDTHS = [(2553, 31, 10, 32), (1408, 31, 5, 16)]   # codelab, KULeuven
+
+
+def _plan_params(rng, dims):
+    from telluride_decoding_torch.decode.infer_decoder import (
+        CorrelationParamsTuple, ModelParamsTuple)
+    from telluride_decoding_torch.solvers.lda import LdaParams
+    zeros = np.zeros(dims)
+    return ModelParamsTuple(
+        CorrelationParamsTuple(1, zeros, zeros, zeros, zeros,
+                               0.1 * rng.randn(dims), 0.1 * rng.randn(dims),
+                               1.0 + rng.rand(dims)),
+        LdaParams(rng.randn(dims, 1), np.zeros((dims, 1)), np.array([0, 1]),
+                  np.zeros((2, dims)), 0.1, 0.5))
+
+
+def _cca_weights(rng, f1, f2, dims):
+    return {'mean1': 0.1 * rng.randn(1, f1), 'mean2': 0.1 * rng.randn(1, f2),
+            'rot1': rng.randn(f1, dims) / np.sqrt(f1),
+            'rot2': rng.randn(f2, dims) / np.sqrt(f2)}
+
+
+def _plan_decoder(cuda, f1, f2, dims, seed):
+    """A served CCA decoder with the LDA reduction from seeded weights,
+    as the benchmark's serving cells build it."""
+    from telluride_decoding_torch.decode.infer_decoder import CCADecoder
+    from telluride_decoding_torch.models.cca import BrainModelCCA
+    rng = np.random.RandomState(seed)
+    model = BrainModelCCA.from_numpy(_cca_weights(rng, f1, f2, dims), cuda)
+    decoder = CCADecoder(model, reduction='lda', device=cuda)
+    decoder.model_params = _plan_params(rng, dims)
+    return decoder
+
+
+def _push_args(rng, rows, f1, f2):
+    return (rng.randn(rows, f1).astype(np.float32),
+            rng.randn(rows, f2).astype(np.float32),
+            rng.randn(rows, f2).astype(np.float32),
+            np.zeros((rows, 1), np.float32), np.zeros((rows, 1), np.float32))
+
+
+def _todays_scores(decoder, args):
+    """infer_pair without a plan: inputs already on the card take the
+    path the decoder took before plans (one K1 launch, two reads)."""
+    return decoder.infer_pair(*(torch.as_tensor(a, device=decoder.device)
+                                for a in args))
+
+
+def _plan_counts():
+    """(K1 launches, graph replays, graph captures, host waits) so far;
+    the counters count inside a profiler."""
+    from telluride_decoding_torch.utils import profiling
+    counters = profiling.recorded().counters
+    return (decode_kernel.fused_cca_decode.launches,
+            counters.get(profiling.GRAPH_REPLAYS, 0),
+            counters.get(profiling.GRAPH_CAPTURES, 0),
+            counters.get(profiling.HOST_WAITS, 0))
+
+
+def _counted_push(decoder, args):
+    before = _plan_counts()
+    got = decoder.infer_pair(*args)
+    return got, tuple(b - a for a, b in zip(before, _plan_counts()))
+
+
+def _assert_same_bits(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == np.float32
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.fixture
+def profiled():
+    from torch.profiler import ProfilerActivity, profile
+    from telluride_decoding_torch.utils import profiling
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        yield
+    profiling.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('f1,f2,dims,rows', PLAN_WIDTHS)
+def test_push_plan_scores_equal_todays_path(cuda, profiled, f1, f2, dims,
+                                            rows):
+    """200 pushes of fresh inputs after a shorter first one: the two
+    first sights take the path without a plan (five host waits), the
+    second full push captures, every later one replays (one wait); one
+    K1 launch a push, and the scores are the same bits throughout."""
+    decoder = _plan_decoder(cuda, f1, f2, dims, seed=f1)
+    rng = np.random.RandomState(1)
+    for push in range(202):
+        args = _push_args(rng, rows - 3 if push == 0 else rows, f1, f2)
+        want = _todays_scores(decoder, args)
+        got, counts = _counted_push(decoder, args)
+        _assert_same_bits(got, want)
+        assert counts == {0: (1, 0, 0, 5), 1: (1, 0, 0, 5),
+                          2: (1, 1, 1, 1)}.get(push, (1, 1, 0, 1)), push
+    assert len(decoder._push_plans) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('refit', ['model', 'lda'])
+def test_push_plan_after_a_refit_mid_stream(cuda, profiled, refit):
+    """A refit (the model's params_version, or new statistics and LDA)
+    gives new operands, so a new key: its first push takes the path
+    without a plan, its second captures, and the scores are the new
+    parameters' bits. infer_pair_async keeps the path without a plan."""
+    f1, f2, dims, rows = PLAN_WIDTHS[1]
+    decoder = _plan_decoder(cuda, f1, f2, dims, seed=3)
+    rng = np.random.RandomState(2)
+    for _ in range(3):
+        _counted_push(decoder, _push_args(rng, rows, f1, f2))
+    args = _push_args(rng, rows, f1, f2)
+    old, counts = _counted_push(decoder, args)
+    assert counts == (1, 1, 0, 1)
+    fresh = np.random.RandomState(9)
+    if refit == 'model':
+        decoder.decoding_model.set_params({
+            k: torch.as_tensor(v) for k, v in
+            _cca_weights(fresh, f1, f2, dims).items()})
+    else:
+        decoder.model_params = _plan_params(fresh, dims)
+    for push in range(4):
+        want = _todays_scores(decoder, args)
+        got, counts = _counted_push(decoder, args)
+        _assert_same_bits(got, want)
+        assert not np.array_equal(got[0], old[0])
+        assert counts == [(1, 0, 0, 5), (1, 1, 1, 1), (1, 1, 0, 1),
+                          (1, 1, 0, 1)][push], push
+    assert len(decoder._push_plans) == 2
+    before = _plan_counts()
+    pending = decoder.infer_pair_async(*args)
+    _assert_same_bits(pending.harvest(), want)
+    after = _plan_counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 0)
+
+
+@pytest.mark.cuda
+def test_push_plan_outlives_an_eviction_of_its_operands(cuda, profiled):
+    """prepared_operands' LRU drops the operands a live graph reads: the
+    plan holds them, so a replay after the allocator has handed out
+    fresh memory still reads them; the decoder's next pushes make new
+    operands, a new key, and the same scores."""
+    import gc
+    import weakref
+    f1, f2, dims, rows = PLAN_WIDTHS[0]
+    decoder = _plan_decoder(cuda, f1, f2, dims, seed=4)
+    rng = np.random.RandomState(3)
+    for _ in range(3):
+        _counted_push(decoder, _push_args(rng, rows, f1, f2))
+    ((operands, plan),) = decoder._push_plans._plans.values()
+    held = weakref.ref(operands.rot1)
+    del operands
+    decode_kernel._prepared.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert held() is not None
+    junk = [torch.full_like(t, float('nan'))
+            for t in plan._operands[:3] for _ in range(4)]
+    args = _push_args(rng, rows, f1, f2)
+    _assert_same_bits(plan.run(*args[:3]), _todays_scores(decoder, args))
+    for push in range(3):
+        args = _push_args(rng, rows, f1, f2)
+        want = _todays_scores(decoder, args)
+        got, counts = _counted_push(decoder, args)
+        _assert_same_bits(got, want)
+        assert counts[1:3] == [(0, 0), (1, 1), (1, 0)][push]
+    del junk

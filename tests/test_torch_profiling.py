@@ -424,7 +424,10 @@ def test_host_waits_of_a_push_are_its_syncs(cuda, monkeypatch, decision,
     assert decided                         # A window every push.
     waits = profiling.recorded().counters.get('host_waits', 0)
     assert waits == syncs.total, syncs.sites
-    assert waits == {'ssd': 6}.get(decision, 5), syncs.sites
+    # The decoder's push plan waits once (S1 once more); the pipelined
+    # push keeps three copies in and two reads.
+    assert waits == {('ssd', False): 2, ('wta', True): 5}.get(
+        (decision, pipeline), 1), syncs.sites
 
 
 @pytest.mark.cuda
@@ -478,6 +481,10 @@ def test_span_lies_on_the_device_clock(cuda):
 
 @pytest.mark.cuda
 def test_trace_draws_the_launch_and_copies_in_their_spans(cuda, tmp_path):
+    """A push on the decoder's plan: the graph's launch call lies in
+    ``decoder.launch``, and its copy in, K1 and copy out on the card
+    between that span's start and the end of the push's
+    ``decoder.copy_out``."""
     server, push = make_server(cuda, chunk=8)
     for _ in range(8):
         push()
@@ -497,6 +504,7 @@ def test_trace_draws_the_launch_and_copies_in_their_spans(cuda, tmp_path):
         return any(lo <= at[0] and at[1] <= hi for lo, hi in spans)
     launch, copy_out = ranges('decoder.launch'), ranges('decoder.copy_out')
     assert len(launch) == len(copy_out) == 4
+    pushes = [(lo, out_hi) for (lo, _), (_, out_hi) in zip(launch, copy_out)]
     k1 = [e for e in events if e.get('cat') == 'kernel' and
           'fused_cca_decode' in e['name']]
     by_correlation = {e['args'].get('correlation'): e for e in events
@@ -505,8 +513,10 @@ def test_trace_draws_the_launch_and_copies_in_their_spans(cuda, tmp_path):
     for kernel in k1:
         call = by_correlation[kernel['args']['correlation']]
         assert inside((call['ts'], call['ts'] + call['dur']), launch)
-    dtoh = [(e['ts'], e['ts'] + e['dur']) for e in events
-            if e.get('cat') == 'gpu_memcpy' and 'DtoH' in e['name']]
-    assert len(dtoh) == 8
-    for copy in dtoh:
-        assert inside(copy, copy_out), copy
+        assert inside((kernel['ts'], kernel['ts'] + kernel['dur']), pushes)
+    for kind in ('HtoD', 'DtoH'):
+        copies = [(e['ts'], e['ts'] + e['dur']) for e in events
+                  if e.get('cat') == 'gpu_memcpy' and kind in e['name']]
+        assert len(copies) == 4, kind
+        for copy in copies:
+            assert inside(copy, pushes), (kind, copy)
