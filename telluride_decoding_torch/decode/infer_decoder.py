@@ -5,12 +5,13 @@ The per-window serving path of a CCA model with the LDA reduction
 (``infer_one``/``infer_pair``) is one launch of kernel K1 per call:
 rotate both inputs, form the normalized correlation, project through the
 LDA, one score per frame (windows of T = 1). For a deep CCA model K1 runs
-on the towers' outputs (plain matrix products in torch first), with the
-model's final CCA as its rotations. ``infer_pair`` scores both audio
-streams against one read of the brain window; on the card, a push of
-host arrays whose shape was seen before replays a resident push plan
-(decode/push_plan.py): one copy in, K1 and one copy out as one CUDA
-graph, and one wait. ``frame_scores``
+on the towers' outputs (plain matrix products, bias adds and ReLUs in
+torch first), with the model's final CCA as its rotations. ``infer_pair``
+scores both audio streams against one read of the brain window; on the
+card, a push of host arrays whose shape was seen before replays a
+resident push plan (decode/push_plan.py): one copy in, the towers of a
+deep CCA model, K1 and one copy out as one CUDA graph, and one wait.
+``frame_scores``
 scores a whole test split in one ``infer_one`` call, so its K1 launch
 covers every frame of the split. The other reductions, and the linear
 regression decoder, run as plain torch, as ``_reduce`` does in the JAX
@@ -369,12 +370,25 @@ class Decoder:
 
     def _kernel_inputs(self, x1: torch.Tensor, x2s: List[torch.Tensor]
                        ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        """What kernel K1 rotates: the inputs themselves."""
-        return x1, x2s
+        """What kernel K1 rotates: the inputs themselves, or the outputs
+        of ``_towers()`` on them (span ``decoder.towers``, and one count
+        of ``decoder.tower_passes`` a stream)."""
+        towers = self._towers()
+        if towers is None:
+            return x1, x2s
+        with profiling.span('decoder.towers'):
+            profiling.count(profiling.TOWER_PASSES, 1 + len(x2s))
+            return towers(x1, x2s)
 
-    def _has_towers(self) -> bool:
-        """Whether ``_kernel_inputs`` runs towers on the inputs."""
-        return False
+    def _towers(self) -> Optional[Callable]:
+        """The towers the inputs pass before K1, as a function
+        ``(x1, x2s) -> (h1, h2s)`` holding the weights it reads; None
+        where K1 rotates the inputs themselves."""
+        return None
+
+    def _input_widths(self, folded: FoldedDecode) -> Tuple[int, int]:
+        """(F1, F2) of the inputs a call with ``folded`` takes."""
+        return folded.rot1.shape[0], folded.rot2.shape[0]
 
     def _tensor(self, value) -> torch.Tensor:
         """A float32 input on this decoder's device; from host memory to
@@ -453,9 +467,16 @@ class Decoder:
     def _plan_key(self, input_1, input_2a, input_2b):
         """(key, operands, folded) of the resident push plan for these
         inputs, or None where the plan does not apply: a decoder off the
-        card, a pipeline without K1 (no CCA model with the LDA
-        reduction), a model with towers, or inputs that are not numpy
-        arrays of [rows, F1] and [rows, F2] with rows >= 1."""
+        card, a pipeline without K1 (no CCA or deep CCA model with the
+        LDA reduction), or inputs that are not numpy arrays of [rows, F1]
+        and [rows, F2] with rows >= 1 (a deep CCA model's F1 and F2 are
+        its towers' input widths).
+
+        The key is (rows, F1, F2, K1's operand addresses). A refit, a
+        ``set_params`` or new statistics rebuild the pipeline and so K1's
+        operands, which no live plan's operands share: a new key. A deep
+        CCA plan's towers hold the weights of the pipeline it was
+        captured under."""
         if self._device.type != 'cuda' or not all(
                 isinstance(v, np.ndarray)
                 for v in (input_1, input_2a, input_2b)):
@@ -464,10 +485,10 @@ class Decoder:
         if self._pipeline is None:
             self._pipeline = self._build_pipeline()
         folded = self._pipeline.folded
-        if folded is None or self._has_towers():
+        if folded is None:
             return None
-        rows, f1, f2 = (input_1.shape[0], folded.rot1.shape[0],
-                        folded.rot2.shape[0])
+        rows = input_1.shape[0]
+        f1, f2 = self._input_widths(folded)
         if not (rows and input_1.shape == (rows, f1)
                 and input_2a.shape == input_2b.shape == (rows, f2)):
             return None
@@ -482,14 +503,16 @@ class Decoder:
 
         Where ``_plan_key`` finds a plan's key seen before, the push
         replays that resident plan (decode/push_plan.py), captured on
-        the key's second sight; the scores are the same bits."""
+        the key's second sight, a deep CCA model's towers inside it; the
+        scores are the same bits."""
         with profiling.span('decoder.infer_pair'):
             found = self._plan_key(input_1, input_2a, input_2b)
             if found is not None:
                 key, operands, folded = found
                 plan = self._push_plans.plan(
                     key, operands, lambda: push_plan.PushPlan(
-                        folded, operands, *key[:3], self._device))
+                        folded, operands, *key[:3], self._device,
+                        self._towers()))
                 if plan is not None:
                     return plan.run(input_1, input_2a, input_2b)
             scores_a, scores_b = self._pair_scores(
@@ -741,16 +764,16 @@ class CCADecoder(Decoder):
             corr_mean_x=mean_x, corr_mean_y=mean_y, corr_power=power,
             lda_w=lda_w, lda_slope=lda_slope, lda_intercept=lda_intercept))
 
-    def _kernel_inputs(self, x1, x2s):
-        """The inputs, or a deep CCA model's tower outputs (h1 of input_1,
-        h2 of each input_2 stream)."""
-        if not self._has_towers():
-            return x1, x2s
-        tower = self._decoding_model.tower
-        return tower(1, x1), [tower(2, x2) for x2 in x2s]
+    def _towers(self):
+        """A deep CCA model's towers (h1 of input_1, h2 of each input_2
+        stream: ``BrainModelDCCA.towers``), or None."""
+        towers = getattr(self._decoding_model, 'towers', None)
+        return None if towers is None else towers()
 
-    def _has_towers(self):
-        return getattr(self._decoding_model, 'tower', None) is not None
+    def _input_widths(self, folded):
+        if getattr(self._decoding_model, 'input_widths', None) is None:
+            return super()._input_widths(folded)
+        return self._decoding_model.input_widths()
 
 
 def create_decoder(model_tag: str, reduction: str = 'lda', model=None, *,

@@ -1,25 +1,34 @@
-"""Resident push plans: a served pair's copy in, kernel K1 and copy out
-as one CUDA graph (the port's own; the JAX package dispatches a served
-chunk as one jitted executable and has no counterpart).
+"""Resident push plans: a served pair's copy in, a deep CCA model's
+towers, kernel K1 and copy out as one CUDA graph (the port's own; the
+JAX package dispatches a served chunk as one jitted executable and has
+no counterpart).
 
-A synchronous ``Decoder.infer_pair`` on the card otherwise pays, every
-push, for three blocking copies from pageable memory, K1's launch path
-(the pipeline check, the plan lookup, an allocation, ctypes and the
-cluster launch) and two blocking reads. A ``PushPlan`` holds, for one
-(rows, F1, F2, kernel operands):
+A synchronous ``Decoder.infer_pair`` of host arrays on the card, to a
+CCA or deep CCA decoder with the LDA reduction, otherwise pays, every
+push, for three blocking copies from pageable memory, a deep CCA model's
+eager tower launches (a product and a bias add a layer, a ReLU after
+each hidden one, for each of the three streams), K1's launch path (the
+pipeline check, the plan lookup, an allocation, ctypes and the cluster
+launch) and two blocking reads. A ``PushPlan`` holds, for one (rows, F1,
+F2, kernel operands):
 
   * one pinned host staging buffer holding x1 | x2a | x2b packed, each
     part from a 256-byte boundary, and the device buffer it is copied to;
   * the [2, rows] scores on the card and a pinned host copy of them;
-  * a CUDA graph of the staging buffer's copy to the card, K1's launch
-    (``fused_cca_decode``, the launch the decoder makes without a plan,
-    with the same launch plan and operands) and the scores' copy back,
-    then a record of one CUDA event (an external event: each replay
-    records it, and the host needs no stream object to wait on it).
+  * a CUDA graph of the staging buffer's copy to the card, for a deep
+    CCA model its three tower passes (the decoder's own ``_towers``
+    function, the products in float32 with TF32 off, bias adds and
+    ReLUs as without a plan, on weights the function holds), K1's
+    launch (``fused_cca_decode``, the launch the decoder makes without a
+    plan, with the same launch plan and operands) and the scores' copy
+    back, then a record of one CUDA event (an external event: each
+    replay records it, and the host needs no stream object to wait on
+    it).
 
 A push copies its inputs into the staging buffer with numpy, replays the
-graph and waits on the event once: K1's scores on the same inputs and
-operands, bit for bit. ``PushPlans`` keeps a decoder's plans.
+graph and waits on the event once: the same scores as the path without a
+plan on the same inputs, weights and operands, bit for bit. ``PushPlans``
+keeps a decoder's plans.
 """
 
 from __future__ import annotations
@@ -40,14 +49,19 @@ _ALIGN = 64
 class PushPlan:
     """One captured push of ``rows`` frames of F1 + 2 x F2 columns on
     ``operands``, the kernel form of ``folded`` that prepared_operands
-    gave last (so the capture's launch reads them)."""
+    gave last (so the capture's launch reads them). ``towers``, where
+    given, maps the inputs to what K1 rotates, ``(x1, [x2a, x2b]) ->
+    (h1, [h2a, h2b])``, and holds the weights it reads."""
 
     def __init__(self, folded: decode_kernel.FoldedDecode,
                  operands: decode_kernel.PreparedOperands, rows: int,
-                 f1: int, f2: int, device: torch.device):
+                 f1: int, f2: int, device: torch.device,
+                 towers: Optional[Callable] = None):
         self._device = device
-        # The memory the graph's K1 reads, alive as long as the graph.
+        # The memory the graph reads, alive as long as the graph: K1's
+        # operands, and the towers' weights through the function.
         self._operands = operands
+        self._towers = towers
         widths = (f1, f2, f2)
         starts = np.cumsum([0] + [-(-rows * w // _ALIGN) * _ALIGN
                                   for w in widths])
@@ -58,7 +72,7 @@ class PushPlan:
         staged = self._staging.numpy()
         self._host_inputs = [staged[s:s + rows * w].reshape(rows, w)
                              for s, w in zip(starts, widths)]
-        x1, x2a, x2b = (self._inputs[s:s + rows * w].view(rows, 1, w)
+        x1, x2a, x2b = (self._inputs[s:s + rows * w].view(rows, w)
                         for s, w in zip(starts, widths))
         self._host_scores = torch.empty((2, rows), dtype=torch.float32,
                                         pin_memory=True)
@@ -66,11 +80,13 @@ class PushPlan:
         self._done = torch.cuda.Event(external=True)
         self._graph = torch.cuda.CUDAGraph()
         launches = decode_kernel.fused_cca_decode.launches
-        with torch.cuda.device(device), torch.cuda.graph(
+        with torch.cuda.device(device), torch.no_grad(), torch.cuda.graph(
                 self._graph, capture_error_mode='thread_local'):
             self._inputs.copy_(self._staging, non_blocking=True)
-            self._scores = decode_kernel.fused_cca_decode(folded, x1, x2a,
-                                                          x2b)
+            if towers is not None:
+                x1, (x2a, x2b) = towers(x1, [x2a, x2b])
+            self._scores = decode_kernel.fused_cca_decode(
+                folded, x1[:, None], x2a[:, None], x2b[:, None])
             self._host_scores.copy_(self._scores, non_blocking=True)
             self._done.record()
         # A capture records the launch and runs nothing; replays count.
@@ -89,6 +105,8 @@ class PushPlan:
             self._graph.replay()
             decode_kernel.fused_cca_decode.launches += 1
             profiling.count(profiling.GRAPH_REPLAYS)
+            if self._towers is not None:
+                profiling.count(profiling.TOWER_PASSES, 3)
         with profiling.span('decoder.copy_out'):
             profiling.host_wait(self._device)
             self._done.synchronize()

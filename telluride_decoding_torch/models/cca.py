@@ -4,7 +4,7 @@ objective with a closed-form CCA of their outputs on top."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -216,6 +216,25 @@ class BrainModelDCCA(_SgdModel):
         [N, F] -> [N, cca_dims]."""
         return self._tower(self._require_params(), index,
                            self.as_tensor(x).float())
+
+    def towers(self) -> Callable:
+        """Both towers of the current parameters, as a function
+        ``(x1, [x2, ...]) -> (h1, [h2, ...])`` computing what ``tower``
+        computes. It holds those parameters: a refit replaces them, so a
+        CUDA graph captured through it keeps reading the weights it was
+        captured with, alive at their addresses."""
+        params = self._require_params()
+
+        def apply(x1, x2s):
+            return (self._tower(params, 1, self.as_tensor(x1).float()),
+                    [self._tower(params, 2, self.as_tensor(x2).float())
+                     for x2 in x2s])
+        return apply
+
+    def input_widths(self) -> Tuple[int, int]:
+        """(F1, F2): the widths the two towers take."""
+        params = self._require_params()
+        return params['tower1/0/w'].shape[0], params['tower2/0/w'].shape[0]
 
     def forward(self, input_dict) -> torch.Tensor:
         """[N, F1], [N, F2] -> [N, 2 cca_dims]: (h1 - mean1) @ rot1 |

@@ -13,7 +13,8 @@ The port's one span and counter recorder: ``span(name, request)`` around
 a piece of host work, ``count(name, n)`` (``host_wait`` for the counter
 ``host_waits``, each place the host blocks on the card; ``GRAPH_REPLAYS``
 and ``GRAPH_CAPTURES`` for the decoder's resident push plans,
-decode/push_plan.py), ``recorded()`` and ``reset()``. It records while a
+decode/push_plan.py; ``TOWER_PASSES`` for a deep CCA decoder's tower
+passes), ``recorded()`` and ``reset()``. It records while a
 torch profiler runs, and only then: ``torch.profiler.profile`` (the
 benchmark's traced slice) or ``trace`` (an operator's ``--trace_dir``).
 Off, a span costs one read of torch's own flag and hands back a shared
@@ -45,6 +46,9 @@ HOST_WAITS = 'host_waits'
 # Pushes served by replaying a resident plan's CUDA graph, and captures.
 GRAPH_REPLAYS = 'decoder.graph_replays'
 GRAPH_CAPTURES = 'decoder.graph_captures'
+# A deep CCA decoder's tower passes served (one a stream: 3 a pair), eager
+# or inside a push plan's graph.
+TOWER_PASSES = 'decoder.tower_passes'
 DROPPED = 'dropped'
 CAP = 1 << 20
 _clock = time.time_ns

@@ -21,7 +21,8 @@ alike; only the four window sums run in another order, and twenty EM
 rounds of Newton steps amplify that). S1's sequence form against its
 window form: bit for bit (the same device function on the same inputs).
 The decoder's resident push plan against the decoder's path without it:
-bit for bit (K1's launch on the same inputs and operands).
+bit for bit (K1's launch on the same inputs and operands; a deep CCA's
+towers, the same products, bias adds and ReLUs, captured in the graph).
 """
 
 import numpy as np
@@ -1135,3 +1136,83 @@ def test_push_plan_outlives_an_eviction_of_its_operands(cuda, profiled):
         _assert_same_bits(got, want)
         assert counts[1:3] == [(0, 0), (1, 1), (1, 0)][push]
     del junk
+
+
+def _dcca_plan_decoder(cuda, f1, f2, hidden, dims, seed):
+    """A served deep CCA decoder with the LDA reduction from seeded
+    weights (towers N(0, 2 / fan_in), biases N(0, 0.01)), as the
+    benchmark's deep CCA cell builds it."""
+    from telluride_decoding_torch.decode.infer_decoder import CCADecoder
+    from telluride_decoding_torch.models.cca import BrainModelDCCA
+    rng = np.random.RandomState(seed)
+    flat = {}
+    for index, width in ((1, f1), (2, f2)):
+        widths = [width] + hidden + [dims]
+        for i in range(len(widths) - 1):
+            flat['tower%d/%d/w' % (index, i)] = rng.randn(
+                widths[i], widths[i + 1]) * np.sqrt(2.0 / widths[i])
+            flat['tower%d/%d/b' % (index, i)] = 0.1 * rng.randn(
+                widths[i + 1])
+    flat.update(_cca_weights(rng, dims, dims, dims))
+    model = BrainModelDCCA.from_numpy(flat, cuda, config={
+        'cca_dims': dims, 'hidden_units': hidden, 'input1_width': f1,
+        'input2_width': f2})
+    decoder = CCADecoder(model, reduction='lda', device=cuda)
+    decoder.model_params = _plan_params(rng, dims)
+    return decoder
+
+
+def _tower_passes():
+    from telluride_decoding_torch.utils import profiling
+    return profiling.recorded().counters.get(profiling.TOWER_PASSES, 0)
+
+
+DCCA_PLAN = (2553, 31, [128, 64], 10, 32)     # codelab widths
+
+
+@pytest.mark.cuda
+def test_push_plan_dcca_scores_equal_todays_path(cuda, profiled):
+    """A deep CCA decoder at codelab widths: the towers ride the plan.
+    As for the CCA, the two first sights take the path without a plan
+    (five host waits), the second full push captures, every later one
+    replays with one wait; one K1 launch and three tower passes a push,
+    and the scores are the same bits as the eager towers and K1."""
+    f1, f2, hidden, dims, rows = DCCA_PLAN
+    decoder = _dcca_plan_decoder(cuda, f1, f2, hidden, dims, seed=8)
+    rng = np.random.RandomState(1)
+    for push in range(102):
+        args = _push_args(rng, rows - 3 if push == 0 else rows, f1, f2)
+        want = _todays_scores(decoder, args)
+        passes = _tower_passes()
+        got, counts = _counted_push(decoder, args)
+        _assert_same_bits(got, want)
+        assert _tower_passes() - passes == 3, push
+        assert counts == {0: (1, 0, 0, 5), 1: (1, 0, 0, 5),
+                          2: (1, 1, 1, 1)}.get(push, (1, 1, 0, 1)), push
+    assert len(decoder._push_plans) == 1
+
+
+@pytest.mark.cuda
+def test_push_plan_dcca_after_a_refit_mid_stream(cuda, profiled):
+    """New tower weights mid-stream (``set_params``): a new key, whose
+    first push takes the path without a plan and whose second captures;
+    the scores are the new weights' bits, never the old graph's."""
+    f1, f2, hidden, dims, rows = DCCA_PLAN
+    decoder = _dcca_plan_decoder(cuda, f1, f2, hidden, dims, seed=3)
+    rng = np.random.RandomState(2)
+    for _ in range(3):
+        _counted_push(decoder, _push_args(rng, rows, f1, f2))
+    args = _push_args(rng, rows, f1, f2)
+    old, counts = _counted_push(decoder, args)
+    assert counts == (1, 1, 0, 1)
+    fresh = _dcca_plan_decoder(cuda, f1, f2, hidden, dims, seed=9)
+    decoder.decoding_model.set_params(
+        {k: v.clone() for k, v in fresh.decoding_model.params.items()})
+    for push in range(4):
+        want = _todays_scores(decoder, args)
+        got, counts = _counted_push(decoder, args)
+        _assert_same_bits(got, want)
+        assert not np.array_equal(got[0], old[0])
+        assert counts == [(1, 0, 0, 5), (1, 1, 1, 1), (1, 1, 0, 1),
+                          (1, 1, 0, 1)][push], push
+    assert len(decoder._push_plans) == 2

@@ -4,8 +4,9 @@ on the card only (tests/test_torch_cuda.py, ``-k push_plan``).
 
 A decoder built on the CPU and then pointed at a CUDA device (its
 pipeline already built, so nothing is moved) shows the selection rule
-without a card: only a CCA model with the LDA reduction, no towers, and
-numpy inputs of the model's widths get a plan key.
+without a card: only a CCA or deep CCA model with the LDA reduction and
+numpy inputs of the model's widths get a plan key (a deep CCA's plan
+runs its towers too: tests/test_torch_dcca_serving.py).
 """
 
 import gc
@@ -103,10 +104,10 @@ def test_plan_key_of_a_cca_decoder_with_lda_and_host_arrays():
 
 
 @pytest.mark.parametrize('case', [
-    'cpu_decoder', 'linear', 'dcca', 'reduction_first', 'tensor_inputs',
+    'cpu_decoder', 'linear', 'reduction_first', 'tensor_inputs',
     'no_rows', 'wrong_width', 'streams_differ', 'one_dim'])
 def test_every_other_call_takes_todays_path(case):
-    kind = {'linear': 'linear', 'dcca': 'dcca'}.get(case, 'cca')
+    kind = 'linear' if case == 'linear' else 'cca'
     decoder = make_decoder(
         kind, 'first' if case == 'reduction_first' else 'lda')
     x1, x2a, x2b = inputs()[:3]
