@@ -657,12 +657,21 @@ def phase_lagstack(torch, device):
                                                        lag_stack_reference)
     gen = torch.Generator(device=device).manual_seed(0)
     worst = 0.0
-    for n, c, pre, post in [(TRAIN_FRAMES, IN1_CHANNELS, PRE, POST),
-                            (STREAM_FRAMES, 1, IN2_PRE, IN2_POST),
-                            (SWEEP_FRAMES + POST, IN1_CHANNELS, PRE, POST),
-                            (SWEEP_FRAMES + POST, 1, IN2_PRE, IN2_POST),
-                            (11520, 64, 0, 21), (1237, 5, 3, 2),
-                            (7, 3, 5, 9)]:
+    # The served windows a push plan stacks in its graph: a stream's raw
+    # frames [pre + rows + post, C] with no pre context and pre + post
+    # after, at the codelab and KULeuven widths and the served chunks.
+    served = [(pre + rows + post, c, 0, pre + post)
+              for c, pre, post in ((IN1_CHANNELS, PRE, POST),
+                                   (KULEUVEN['channels'],
+                                    *KULEUVEN['contexts'][:2]),
+                                   (1, IN2_PRE, IN2_POST))
+              for rows in (16, SERVE_ROWS)]
+    shapes = [(TRAIN_FRAMES, IN1_CHANNELS, PRE, POST),
+              (STREAM_FRAMES, 1, IN2_PRE, IN2_POST),
+              (SWEEP_FRAMES + POST, IN1_CHANNELS, PRE, POST),
+              (SWEEP_FRAMES + POST, 1, IN2_PRE, IN2_POST),
+              (11520, 64, 0, 21), (1237, 5, 3, 2), (7, 3, 5, 9)] + served
+    for n, c, pre, post in shapes:
         x = torch.randn((n, c), generator=gen, device=device)
         got = lag_stack(x, pre, post)
         want = lag_stack_reference(x, pre, post)
@@ -680,10 +689,11 @@ def phase_lagstack(torch, device):
     limit = bound_ms(x.numel() * 4 + out_bytes)
     on_device = device_ms(torch, lambda: lag_stack(x, PRE, POST),
                           'lag_stack_kernel')
-    log('phase 2 lag_stack: bit-exact at 7 shapes; [%d, %d] pre %d post %d: '
-        'kernel %.4f ms (%.0f GB/s written), on the device %s, plain %.4f '
-        'ms, bound %.4f ms'
-        % (TRAIN_FRAMES, IN1_CHANNELS, PRE, POST, ms, out_bytes / ms / 1e6,
+    log('phase 2 lag_stack: bit-exact at %d shapes (%d of them served '
+        'windows); [%d, %d] pre %d post %d: kernel %.4f ms (%.0f GB/s '
+        'written), on the device %s, plain %.4f ms, bound %.4f ms'
+        % (len(shapes), len(served), TRAIN_FRAMES, IN1_CHANNELS, PRE, POST,
+           ms, out_bytes / ms / 1e6,
            fmt_ms(on_device), plain_ms, limit))
     return {'max_abs_err': worst, 'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': limit, 'bound_by': 'bytes'}
@@ -4957,6 +4967,14 @@ def main():
                 sweep[name] + cohort[name] + attention[name] +
                 raw_ingest[name] + model_files[name] + sgd[name] + aot[name]
                 + several[name] + walkthrough[name] for name in kuleuven}
+    log('K2 launches by phase: ' + json.dumps({
+        name: phase['lag_stack'] for name, phase in (
+            ('4 codelab', codelab), ('7 KULeuven', kuleuven),
+            ('8 decoding', decoding), ('9 sweep', sweep),
+            ('10 cohort', cohort), ('11 attention', attention),
+            ('12 raw ingest', raw_ingest), ('13 model files', model_files),
+            ('14 sgd', sgd), ('15 aot', aot), ('16 several devices', several),
+            ('17 walk-through', walkthrough))}))
     common = dict(route='cuda', library_ms=None)
     kernels = [
         dict(name='fused_cca_decode',

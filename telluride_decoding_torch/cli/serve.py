@@ -54,7 +54,7 @@ from telluride_decoding_torch.cli.infer import load_model
 from telluride_decoding_torch.decide import attention_decoder
 from telluride_decoding_torch.decode import aot, infer_decoder
 from telluride_decoding_torch.decode.result_store import TwoResultStore
-from telluride_decoding_torch.ops.lagstack import lag_stack_np
+from telluride_decoding_torch.ops.lagstack import LagRows
 from telluride_decoding_torch.utils import profiling
 
 REDUCTIONS = ('first', 'second', 'mean', 'mean-squared', 'lda')
@@ -107,20 +107,26 @@ class ContextBuffer:
         self._arrived = 0
         self._emitted = 0
 
-    def push(self, frames: np.ndarray) -> np.ndarray:
+    def push(self, frames: np.ndarray) -> LagRows:
         """Adds [n, C] frames; returns all newly-completable stacked
-        rows [m, (pre+1+post)*C] (possibly empty)."""
+        rows [m, (pre+1+post)*C] (possibly none) as their raw window."""
         frames = np.atleast_2d(np.asarray(frames, np.float32))
         self._buf = np.concatenate([self._buf, frames], axis=0)
         self._arrived += frames.shape[0]
         avail = self._arrived - self._post - self._emitted
         if avail <= 0:
-            return np.zeros(
-                (0, (self._pre + 1 + self._post) * frames.shape[1]),
-                np.float32)
-        rows = self._buf[:avail + self._pre + self._post]
-        out = lag_stack_np(rows, self._pre, self._post)[
-            self._pre:self._pre + avail]
+            return LagRows.empty(frames.shape[1], self._pre, self._post)
+        # The buffer holds avail + pre + post frames. A guard for one
+        # whose state was moved out of step and holds fewer: its rows are
+        # those the host stack gave it, the rows of the frames held with
+        # zeros after them (lag_stack_np's edge), no more than it holds.
+        rows = min(avail, max(self._buf.shape[0] - self._pre, 0))
+        window = self._buf[:rows + self._pre + self._post]
+        short = rows + self._pre + self._post - window.shape[0]
+        if short > 0:
+            window = np.concatenate(
+                [window, np.zeros((short, window.shape[1]), np.float32)])
+        out = LagRows(window, self._pre, self._post)
         self._buf = self._buf[avail:]
         self._emitted += avail
         return out
@@ -155,14 +161,12 @@ class StreamingAttentionServer:
         self._ctx_eeg = ContextBuffer(eeg_channels, eeg_pre, eeg_post)
         self._ctx_a1 = ContextBuffer(audio_channels, in2_pre, in2_post)
         self._ctx_a2 = ContextBuffer(audio_channels, in2_pre, in2_post)
-        # Completed rows queue per stream until every stream has caught
-        # up: the buffers complete rows at different rates when the eeg
-        # and audio post-contexts differ.
-        self._pend_eeg = np.zeros(
-            (0, (eeg_pre + 1 + eeg_post) * eeg_channels), np.float32)
-        in2_width = (in2_pre + 1 + in2_post) * audio_channels
-        self._pend_a1 = np.zeros((0, in2_width), np.float32)
-        self._pend_a2 = np.zeros((0, in2_width), np.float32)
+        # Completed rows queue per stream, as raw windows, until every
+        # stream has caught up: the buffers complete rows at different
+        # rates when the eeg and audio post-contexts differ.
+        self._pend_eeg = LagRows.empty(eeg_channels, eeg_pre, eeg_post)
+        self._pend_a1 = LagRows.empty(audio_channels, in2_pre, in2_post)
+        self._pend_a2 = LagRows.empty(audio_channels, in2_pre, in2_post)
         # Raw audio for the `output` stream, kept aligned with the eeg
         # emission delay.
         self._q1 = np.zeros((0, audio_channels), np.float32)
@@ -201,7 +205,8 @@ class StreamingAttentionServer:
     def _context_rows(self, eeg, audio1, audio2) -> Optional[tuple]:
         """The chunk through the context buffers and queues: the rows
         every stream has completed, as infer_pair's (stacked eeg, two
-        stacked audio, two raw audio), or None."""
+        stacked audio, two raw audio), or None. The stacked rows are
+        LagRows: raw windows the decoder stacks where it uses them."""
         eeg = np.atleast_2d(np.asarray(eeg, np.float32))
         audio1 = np.atleast_2d(np.asarray(audio1, np.float32))
         audio2 = np.atleast_2d(np.asarray(audio2, np.float32))
@@ -210,22 +215,18 @@ class StreamingAttentionServer:
                 'push: eeg/audio1/audio2 chunks must carry the same frame '
                 'count, got %d/%d/%d.'
                 % (eeg.shape[0], audio1.shape[0], audio2.shape[0]))
-        self._pend_eeg = np.concatenate(
-            [self._pend_eeg, self._ctx_eeg.push(eeg)])
-        self._pend_a1 = np.concatenate(
-            [self._pend_a1, self._ctx_a1.push(audio1)])
-        self._pend_a2 = np.concatenate(
-            [self._pend_a2, self._ctx_a2.push(audio2)])
+        self._pend_eeg = self._pend_eeg.join(self._ctx_eeg.push(eeg))
+        self._pend_a1 = self._pend_a1.join(self._ctx_a1.push(audio1))
+        self._pend_a2 = self._pend_a2.join(self._ctx_a2.push(audio2))
         self._q1 = np.concatenate([self._q1, audio1])
         self._q2 = np.concatenate([self._q2, audio2])
-        n = min(self._pend_eeg.shape[0], self._pend_a1.shape[0],
-                self._pend_a2.shape[0], self._q1.shape[0],
-                self._q2.shape[0])
+        n = min(len(self._pend_eeg), len(self._pend_a1),
+                len(self._pend_a2), self._q1.shape[0], self._q2.shape[0])
         if not n:
             return None
-        stacked, self._pend_eeg = self._pend_eeg[:n], self._pend_eeg[n:]
-        a1_ctx, self._pend_a1 = self._pend_a1[:n], self._pend_a1[n:]
-        a2_ctx, self._pend_a2 = self._pend_a2[:n], self._pend_a2[n:]
+        stacked, self._pend_eeg = self._pend_eeg.split(n)
+        a1_ctx, self._pend_a1 = self._pend_a1.split(n)
+        a2_ctx, self._pend_a2 = self._pend_a2.split(n)
         y1, self._q1 = self._q1[:n], self._q1[n:]
         y2, self._q2 = self._q2[:n], self._q2[n:]
         return stacked, a1_ctx, a2_ctx, y1, y2

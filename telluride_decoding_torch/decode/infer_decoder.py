@@ -10,7 +10,10 @@ torch first), with the model's final CCA as its rotations. ``infer_pair``
 scores both audio streams against one read of the brain window; on the
 card, a push of host arrays whose shape was seen before replays a
 resident push plan (decode/push_plan.py): one copy in, the towers of a
-deep CCA model, K1 and one copy out as one CUDA graph, and one wait.
+deep CCA model, K1 and one copy out as one CUDA graph, and one wait. The
+serving loop's pushes bring raw context windows (``LagRows``), which the
+plan stacks on the card with K2 inside the graph; off the plan they are
+stacked on the host.
 ``frame_scores``
 scores a whole test split in one ``infer_one`` call, so its K1 launch
 covers every frame of the split. The other reductions, and the linear
@@ -41,6 +44,7 @@ from telluride_decoding_torch.ops.decode_kernel import (FoldedDecode,
                                                         fused_cca_decode,
                                                         kernel_operands,
                                                         prepared_operands)
+from telluride_decoding_torch.ops.lagstack import LagRows
 from telluride_decoding_torch.solvers import lda as scaled_lda
 from telluride_decoding_torch.utils import profiling
 
@@ -468,18 +472,29 @@ class Decoder:
         """(key, operands, folded) of the resident push plan for these
         inputs, or None where the plan does not apply: a decoder off the
         card, a pipeline without K1 (no CCA or deep CCA model with the
-        LDA reduction), or inputs that are not numpy arrays of [rows, F1]
+        LDA reduction), or inputs that are not all numpy arrays or all
+        LagRows (raw windows, the two audio windows alike) of [rows, F1]
         and [rows, F2] with rows >= 1 (a deep CCA model's F1 and F2 are
         its towers' input widths).
 
-        The key is (rows, F1, F2, K1's operand addresses). A refit, a
-        ``set_params`` or new statistics rebuild the pipeline and so K1's
-        operands, which no live plan's operands share: a new key. A deep
-        CCA plan's towers hold the weights of the pipeline it was
-        captured under."""
-        if self._device.type != 'cuda' or not all(
-                isinstance(v, np.ndarray)
-                for v in (input_1, input_2a, input_2b)):
+        The key is (rows, F1, F2, K1's operand addresses, the windows:
+        (C, pre, post) of input_1, of the input_2 streams); a host array
+        of F columns is a window with no context, (F, 0, 0). The plan
+        stages the windows' frames and stacks those with context on the
+        card. A refit, a ``set_params`` or new statistics rebuild the
+        pipeline and so K1's operands, which no live plan's operands
+        share: a new key. A deep CCA plan's towers hold the weights of
+        the pipeline it was captured under."""
+        if self._device.type != 'cuda':
+            return None
+        inputs = (input_1, input_2a, input_2b)
+        if all(isinstance(v, np.ndarray) and v.ndim == 2 for v in inputs):
+            lags = [(v.shape[1], 0, 0) for v in inputs]
+        elif all(isinstance(v, LagRows) for v in inputs):
+            lags = [(v.frames.shape[1], v.pre, v.post) for v in inputs]
+        else:
+            return None
+        if lags[1] != lags[2]:
             return None
         self._invalidate_stale_pipelines()
         if self._pipeline is None:
@@ -493,7 +508,8 @@ class Decoder:
                 and input_2a.shape == input_2b.shape == (rows, f2)):
             return None
         operands = prepared_operands(folded, torch.float32)
-        return (rows, f1, f2, operands.pointers), operands, folded
+        return ((rows, f1, f2, operands.pointers, (lags[0], lags[1])),
+                operands, folded)
 
     def infer_pair(self, input_1, input_2a, input_2b, output_a,
                    output_b) -> Tuple[np.ndarray, np.ndarray]:
@@ -503,8 +519,10 @@ class Decoder:
 
         Where ``_plan_key`` finds a plan's key seen before, the push
         replays that resident plan (decode/push_plan.py), captured on
-        the key's second sight, a deep CCA model's towers inside it; the
-        scores are the same bits."""
+        the key's second sight, a deep CCA model's towers inside it, and
+        for raw windows (LagRows, which the serving loop hands over) the
+        lag stacks on the card; the scores are the same bits. Off the
+        plan, LagRows are stacked on the host."""
         with profiling.span('decoder.infer_pair'):
             found = self._plan_key(input_1, input_2a, input_2b)
             if found is not None:
@@ -512,7 +530,7 @@ class Decoder:
                 plan = self._push_plans.plan(
                     key, operands, lambda: push_plan.PushPlan(
                         folded, operands, *key[:3], self._device,
-                        self._towers()))
+                        self._towers(), key[4]))
                 if plan is not None:
                     return plan.run(input_1, input_2a, input_2b)
             scores_a, scores_b = self._pair_scores(

@@ -11,6 +11,9 @@ the current frame sits at block index ``pre``.
     telluride_decoding_tpu/ops/lagstack.py:58-67.
   * lag_stack: wrapper of kernel K2 (csrc/lagstack.cu), which replaces
     the Pallas kernel lag_stack_pallas.
+  * LagRows: stacked rows held as the raw frames they are stacked from
+    (the serving loop's context windows; the port's own, the JAX package
+    stacks every served chunk on the host).
 """
 
 from __future__ import annotations
@@ -44,6 +47,72 @@ def lag_stack_np(x, pre: int, post: int):
     view = np.lib.stride_tricks.as_strided(
         padded, shape=(n, total, c), strides=(s0, s0, s1), writeable=False)
     return view.reshape(n, total * c)
+
+
+class LagRows:
+    """n lag-stacked rows of one stream, held as the raw frames
+    [pre + n + post, C] they are stacked from: row t is frames[t], ...,
+    frames[t + pre + post] laid end to end, the row of frame pre + t.
+
+    An array-like of shape [n, (pre + 1 + post) * C]: ``np.asarray``
+    gives the rows, the bits of ``lag_stack_np(frames, pre, post)[pre:pre
+    + n]``. A 32-frame push at codelab widths holds 68 x 69 floats where
+    its rows take 32 x 2553, so the rows can be stacked where they are
+    used (the decoder's push plan stacks them on the card with K2).
+    """
+
+    __slots__ = ('frames', 'pre', 'post')
+
+    def __init__(self, frames: np.ndarray, pre: int, post: int):
+        if frames.ndim != 2 or frames.shape[0] < pre + post:
+            raise ValueError('LagRows takes [pre + n + post, C] frames, got '
+                             '%s for pre %d, post %d.'
+                             % (frames.shape, pre, post))
+        self.frames = frames
+        self.pre = pre
+        self.post = post
+
+    @classmethod
+    def empty(cls, channels: int, pre: int, post: int) -> 'LagRows':
+        return cls(np.zeros((pre + post, channels), np.float32), pre, post)
+
+    def __len__(self) -> int:
+        return self.frames.shape[0] - self.pre - self.post
+
+    @property
+    def shape(self) -> tuple:
+        return (len(self), stacked_width(self.frames.shape[1], self.pre,
+                                         self.post))
+
+    def __array__(self, dtype=None, copy=None):
+        del copy  # The rows are always a new array.
+        n, width = self.shape
+        s0, s1 = self.frames.strides
+        view = np.lib.stride_tricks.as_strided(
+            self.frames, shape=(n, self.pre + 1 + self.post,
+                                self.frames.shape[1]),
+            strides=(s0, s0, s1), writeable=False)
+        rows = view.reshape(n, width)
+        if not rows.flags.writeable:   # A view of the frames, not a copy.
+            rows = rows.copy()
+        return rows if dtype is None else rows.astype(dtype, copy=False)
+
+    def join(self, later: 'LagRows') -> 'LagRows':
+        """These rows followed by ``later``'s, the next rows of the same
+        stream (whose first pre + post frames are this window's last)."""
+        if not len(later):
+            return self
+        if not len(self):
+            return later
+        return LagRows(np.concatenate(
+            [self.frames, later.frames[self.pre + self.post:]]),
+            self.pre, self.post)
+
+    def split(self, n: int) -> tuple:
+        """(the first n rows, the rows after them)."""
+        return (LagRows(self.frames[:n + self.pre + self.post], self.pre,
+                        self.post),
+                LagRows(self.frames[n:], self.pre, self.post))
 
 
 def lag_stack_reference(x: torch.Tensor, pre: int, post: int

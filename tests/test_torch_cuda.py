@@ -1216,3 +1216,64 @@ def test_push_plan_dcca_after_a_refit_mid_stream(cuda, profiled):
         assert counts == [(1, 0, 0, 5), (1, 1, 1, 1), (1, 1, 0, 1),
                           (1, 1, 0, 1)][push], push
     assert len(decoder._push_plans) == 2
+
+
+# Raw windows (LagRows, the serving loop's) at the three served widths:
+# (EEG channels, EEG pre, post, audio pre, post, D, rows, deep CCA hidden).
+RAW_PLANS = {'codelab_cca': (69, 0, 36, 15, 15, 10, 32, None),
+             'kuleuven_cca': (64, 0, 21, 15, 15, 5, 16, None),
+             'codelab_dcca': (69, 0, 36, 15, 15, 10, 32, [128, 64])}
+
+
+def _raw_windows(rng, rows, channels, pre, post, pre2, post2):
+    from telluride_decoding_torch.ops.lagstack import LagRows
+    return (LagRows(rng.randn(pre + rows + post, channels).astype(
+        np.float32), pre, post),) + tuple(
+        LagRows(np.abs(rng.randn(pre2 + rows + post2, 1)).astype(np.float32),
+                pre2, post2) for _ in range(2)) + (
+        np.zeros((rows, 1), np.float32), np.zeros((rows, 1), np.float32))
+
+
+def _device_stacks():
+    from telluride_decoding_torch.utils import profiling
+    return (lagstack.lag_stack.launches,
+            profiling.recorded().counters.get(profiling.DEVICE_STACKS, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('widths', sorted(RAW_PLANS))
+def test_push_plan_raw_windows_equal_host_stacks(cuda, profiled, widths):
+    """Pushes of raw windows: the plan stacks them on the card (K2, one
+    launch a window, inside the graph) and gives the bits of the host
+    stacks on the path without a plan. As for stacked rows, the two
+    first sights take that path (five host waits, nothing stacked on the
+    card), the second full push captures, every push after replays with
+    one wait; each replay counts three K2 launches, one device stack and
+    one graph replay, the capture none."""
+    channels, pre, post, pre2, post2, dims, rows, hidden = RAW_PLANS[widths]
+    f1, f2 = channels * (pre + 1 + post), pre2 + 1 + post2
+    if hidden is None:
+        decoder = _plan_decoder(cuda, f1, f2, dims, seed=11)
+    else:
+        decoder = _dcca_plan_decoder(cuda, f1, f2, hidden, dims, seed=11)
+    rng = np.random.RandomState(5)
+    for push in range(52):
+        args = _raw_windows(rng, rows - 3 if push == 0 else rows, channels,
+                            pre, post, pre2, post2)
+        want = _todays_scores(decoder, [np.asarray(a) for a in args])
+        stacks = _device_stacks()
+        got, counts = _counted_push(decoder, args)
+        _assert_same_bits(got, want)
+        assert counts == {0: (1, 0, 0, 5), 1: (1, 0, 0, 5),
+                          2: (1, 1, 1, 1)}.get(push, (1, 1, 0, 1)), push
+        assert tuple(b - a for a, b in zip(stacks, _device_stacks())) == (
+            (0, 0) if push < 2 else (3, 1)), push
+    ((key, _),) = decoder._push_plans._plans.items()
+    assert key[4] == ((channels, pre, post), (1, pre2, post2))
+    # The same decoder's stacked rows take a plan of their own.
+    args = _raw_windows(rng, rows, channels, pre, post, pre2, post2)
+    stacked = [np.asarray(a) for a in args]
+    for _ in range(3):
+        _assert_same_bits(decoder.infer_pair(*stacked), _todays_scores(
+            decoder, stacked))
+    assert len(decoder._push_plans) == 2

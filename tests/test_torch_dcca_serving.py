@@ -185,7 +185,7 @@ def test_dcca_plan_key_and_a_new_one_after_a_refit(refit):
     key, operands, folded = decoder._plan_key(*pair())
     assert folded is decoder._pipeline.folded
     assert folded.rot1.shape == (DIMS, DIMS)
-    assert key == (32, F1, F2, operands.pointers)
+    assert key == (32, F1, F2, operands.pointers, ((F1, 0, 0), (F2, 0, 0)))
     fresh = seeded_weights(5)
     decoder._device = torch.device('cpu')
     if refit == 'model':
@@ -205,7 +205,8 @@ class StandInPlan:
 
     made = []
 
-    def __init__(self, folded, operands, rows, f1, f2, device, towers):
+    def __init__(self, folded, operands, rows, f1, f2, device, towers,
+                 windows):
         self.shape = (rows, f1, f2)
         self.folded, self.towers = folded, towers
         StandInPlan.made.append(self)

@@ -25,10 +25,13 @@ from telluride_decoding_torch.models.brain_model import (
     BrainModelLinearRegression)
 from telluride_decoding_torch.models.cca import BrainModelCCA, BrainModelDCCA
 from telluride_decoding_torch.ops import decode_kernel
+from telluride_decoding_torch.ops.lagstack import LagRows
 from telluride_decoding_torch.solvers.lda import LdaParams
 from telluride_decoding_torch.utils import profiling
 
 F1, F2, DIMS, ROWS = 12, 3, 3, 8
+# Raw windows of those widths: (C, pre, post) of the EEG and the audio.
+LAGS = ((3, 0, 3), (1, 1, 1))
 GRAPH_COUNTERS = (profiling.GRAPH_REPLAYS, profiling.GRAPH_CAPTURES)
 
 
@@ -87,6 +90,18 @@ def inputs(rows=ROWS, seed=1):
             np.zeros((rows, 1), np.float32), np.zeros((rows, 1), np.float32))
 
 
+def windows(rows=ROWS, seed=1, lags=LAGS):
+    """inputs() as raw windows (LagRows) of ``lags``."""
+    rng = np.random.RandomState(seed)
+    (c1, pre1, post1), (c2, pre2, post2) = lags
+    return (LagRows(rng.randn(pre1 + rows + post1, c1).astype(np.float32),
+                    pre1, post1),
+            LagRows(rng.randn(pre2 + rows + post2, c2).astype(np.float32),
+                    pre2, post2),
+            LagRows(rng.randn(pre2 + rows + post2, c2).astype(np.float32),
+                    pre2, post2)) + inputs(rows)[3:]
+
+
 def on_card(decoder):
     """The decoder with its CPU pipeline built, then named a CUDA one."""
     decoder._invalidate_stale_pipelines()
@@ -100,18 +115,40 @@ def test_plan_key_of_a_cca_decoder_with_lda_and_host_arrays():
     key, operands, folded = decoder._plan_key(*inputs()[:3])
     assert folded is decoder._pipeline.folded
     assert operands is decode_kernel.prepared_operands(folded, torch.float32)
-    assert key == (ROWS, F1, F2, operands.pointers)
+    # Host arrays are windows with no context.
+    assert key == (ROWS, F1, F2, operands.pointers, ((F1, 0, 0), (F2, 0, 0)))
+
+
+def test_plan_key_of_raw_windows():
+    """LagRows get a key of their own: the stacked widths' key with the
+    windows' (C, pre, post)."""
+    decoder = on_card(make_decoder('cca'))
+    key, operands, folded = decoder._plan_key(*windows()[:3])
+    assert folded is decoder._pipeline.folded
+    assert key == (ROWS, F1, F2, operands.pointers, LAGS)
+    stacked = [np.asarray(w) for w in windows()[:3]]
+    assert decoder._plan_key(*stacked)[0][:4] == key[:4]
+    assert decoder._plan_key(*stacked)[0] != key
 
 
 @pytest.mark.parametrize('case', [
     'cpu_decoder', 'linear', 'reduction_first', 'tensor_inputs',
-    'no_rows', 'wrong_width', 'streams_differ', 'one_dim'])
+    'no_rows', 'wrong_width', 'streams_differ', 'one_dim',
+    'windows_and_arrays', 'audio_windows_differ', 'window_wrong_width'])
 def test_every_other_call_takes_todays_path(case):
     kind = 'linear' if case == 'linear' else 'cca'
     decoder = make_decoder(
         kind, 'first' if case == 'reduction_first' else 'lda')
     x1, x2a, x2b = inputs()[:3]
-    if case == 'tensor_inputs':
+    if case == 'windows_and_arrays':
+        x1 = windows()[0]
+    elif case == 'audio_windows_differ':
+        # The same stacked width from other lags.
+        x1, x2a, _ = windows()[:3]
+        x2b = windows(lags=(LAGS[0], (1, 0, 2)))[2]
+    elif case == 'window_wrong_width':
+        x1, x2a, x2b = windows(lags=((3, 0, 2), LAGS[1]))[:3]
+    elif case == 'tensor_inputs':
         x1 = torch.from_numpy(x1)
     elif case == 'no_rows':
         x1, x2a, x2b = x1[:0], x2a[:0], x2b[:0]
@@ -142,6 +179,46 @@ def test_cpu_decoders_serve_as_before_and_count_nothing(kind):
     for pair in got:
         for g, w in zip(pair, want):
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize('kind', ['cca', 'linear', 'dcca'])
+def test_raw_windows_off_the_plan_stack_on_the_host(kind):
+    """Off the plan (here the CPU), raw windows are stacked on the host:
+    the scores of their stacked rows, bit for bit, synchronous or not."""
+    decoder = make_decoder(kind)
+    raw = windows()
+    stacked = [np.asarray(a) for a in raw]
+    want = decoder.infer_pair(*stacked)
+    for got in (decoder.infer_pair(*raw), decoder.infer_pair_async(*raw)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+class StandIn:
+    """A stand-in plan: what the decoder hands a raw-window plan."""
+
+    def __init__(self, folded, operands, rows, f1, f2, device, towers,
+                 lags=None):
+        self.made = (rows, f1, f2, lags)
+        self.ran = []
+
+    def run(self, *args):
+        self.ran.append(args)
+        return np.zeros(ROWS, np.float32), np.ones(ROWS, np.float32)
+
+
+def test_raw_window_plan_gets_the_windows_and_their_frames(monkeypatch):
+    decoder = on_card(make_decoder('cca'))
+    made = []
+    monkeypatch.setattr(push_plan, 'PushPlan',
+                        lambda *a: made.append(StandIn(*a)) or made[-1])
+    raw = windows()
+    decoder._push_plans.saw(decoder._plan_key(*raw[:3])[0])
+    got = decoder.infer_pair(*raw)
+    (plan,) = made
+    assert plan.made == (ROWS, F1, F2, LAGS)
+    assert [a is b for a, b in zip(plan.ran[0], raw)] == [True] * 3
+    assert got[1][0] == 1.0
 
 
 class FakePlan:

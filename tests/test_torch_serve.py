@@ -24,7 +24,7 @@ import torch
 from telluride_decoding_tpu.cli import serve as jax_serve
 from telluride_decoding_torch import kernels
 from telluride_decoding_torch.cli import serve
-from telluride_decoding_torch.ops.lagstack import lag_stack_np
+from telluride_decoding_torch.ops.lagstack import LagRows, lag_stack_np
 from test_torch_infer_decoder import jax_model_dir, recordings
 
 SCORE_TOL = 1e-4
@@ -50,18 +50,154 @@ def served(tmp_path_factory):
     return path, stream
 
 
-@pytest.mark.parametrize('pre,post,chunks', [(0, 0, [7, 5, 9]),
-                                             (2, 4, [1, 9, 3, 8]),
-                                             (5, 5, [30])])
-def test_context_buffer_matches_jax(rng, pre, post, chunks):
-    x = rng.randn(sum(chunks), 3).astype(np.float32)
-    got_buf = serve.ContextBuffer(3, pre, post)
-    want_buf = jax_serve.ContextBuffer(3, pre, post)
-    start = 0
+# The last cases are codelab widths: 69 EEG channels with 36 frames of
+# post context, one audio channel with 15 frames either side.
+@pytest.mark.parametrize('pre,post,chunks,channels', [
+    (0, 0, [7, 5, 9], 3), (2, 4, [1, 9, 3, 8], 3), (5, 5, [30], 3),
+    (0, 36, [32] * 6, 69), (0, 36, [5, 40, 1, 33, 64, 32], 69),
+    (15, 15, [32] * 4, 1), (15, 15, [3, 16, 29, 1, 32], 1)], ids=[
+        '0-0-chunks0', '2-4-chunks1', '5-5-chunks2', 'codelab-eeg',
+        'codelab-eeg-ragged', 'codelab-audio', 'codelab-audio-ragged'])
+def test_context_buffer_matches_jax(rng, pre, post, chunks, channels):
+    """Each push's window holds the rows the JAX package's buffer
+    stacks, and np.asarray of it gives the offline lag stack's rows of
+    the stream, bit for bit."""
+    x = rng.randn(sum(chunks), channels).astype(np.float32)
+    offline = lag_stack_np(x, pre, post)
+    got_buf = serve.ContextBuffer(channels, pre, post)
+    want_buf = jax_serve.ContextBuffer(channels, pre, post)
+    start = emitted = 0
     for c in chunks:
-        np.testing.assert_array_equal(got_buf.push(x[start:start + c]),
-                                      want_buf.push(x[start:start + c]))
+        got = got_buf.push(x[start:start + c])
+        assert isinstance(got, LagRows)
+        rows = np.asarray(got)
+        assert rows.dtype == np.float32 and rows.shape == got.shape
+        np.testing.assert_array_equal(rows, want_buf.push(x[start:start + c]))
+        np.testing.assert_array_equal(rows,
+                                      offline[emitted:emitted + len(got)])
+        emitted += len(got)
         start += c
+    assert emitted == max(0, sum(chunks) - post)
+
+
+@pytest.mark.parametrize('pre,post', [(0, 36), (2, 3), (3, 0)])
+def test_context_buffer_out_of_step_gives_the_host_stacks_rows(rng, pre,
+                                                               post):
+    """A buffer whose state was moved out of step (its frames held back
+    after each push, so it holds fewer than its counts say) gives the
+    rows the host stack gave the frames it holds, with zeros past their
+    end, bit for bit, and no more rows than those."""
+    channels = 2
+    buf = serve.ContextBuffer(channels, pre, post)
+    for c in [5, 32, 1, 40, 32, 64]:
+        frames = rng.randn(c, channels).astype(np.float32)
+        kept = buf._buf
+        held = np.concatenate([kept, frames])
+        avail = buf._arrived + c - post - buf._emitted
+        want = lag_stack_np(held[:max(avail, 0) + pre + post], pre,
+                            post)[pre:pre + max(avail, 0)]
+        got = buf.push(frames)
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(np.asarray(got), want)
+        buf._buf = kept
+
+
+class HostStackedServer(serve.StreamingAttentionServer):
+    """The server with each push's rows stacked on the host from the
+    whole streams received so far (lag_stack_np): the rows every stream
+    has completed since the last push, as arrays."""
+
+    def _context_rows(self, eeg, audio1, audio2):
+        chunks = [np.atleast_2d(np.asarray(x, np.float32))
+                  for x in (eeg, audio1, audio2)]
+        self._seen = [np.concatenate([s, c]) for s, c in zip(
+            getattr(self, '_seen', [c[:0] for c in chunks]), chunks)]
+        lags = [(b._pre, b._post)
+                for b in (self._ctx_eeg, self._ctx_a1, self._ctx_a2)]
+        start = getattr(self, '_done', 0)
+        done = min(len(s) - post for s, (_, post) in zip(self._seen, lags))
+        if done <= start:
+            return None
+        self._done = done
+        rows = [lag_stack_np(s, pre, post)[start:done]
+                for s, (pre, post) in zip(self._seen, lags)]
+        return tuple(rows) + tuple(s[start:done] for s in self._seen[1:])
+
+
+def _context_decoder(eeg_channels, eeg_pre, eeg_post, audio_pre,
+                     audio_post, dims=3):
+    """A CCA decoder with the LDA reduction on seeded weights, for
+    these lags."""
+    from telluride_decoding_torch.decode.infer_decoder import (
+        CCADecoder, CorrelationParamsTuple, ModelParamsTuple)
+    from telluride_decoding_torch.models.cca import BrainModelCCA
+    from telluride_decoding_torch.solvers.lda import LdaParams
+    rng = np.random.RandomState(4)
+    f1 = eeg_channels * (eeg_pre + 1 + eeg_post)
+    f2 = audio_pre + 1 + audio_post
+    model = BrainModelCCA.from_numpy(
+        {'mean1': 0.1 * rng.randn(1, f1), 'mean2': 0.1 * rng.randn(1, f2),
+         'rot1': rng.randn(f1, dims) / np.sqrt(f1),
+         'rot2': rng.randn(f2, dims) / np.sqrt(f2)}, 'cpu')
+    decoder = CCADecoder(model, reduction='lda', device='cpu')
+    zeros = np.zeros(dims)
+    decoder.model_params = ModelParamsTuple(
+        CorrelationParamsTuple(1, zeros, zeros, zeros, zeros,
+                               0.1 * rng.randn(dims), 0.1 * rng.randn(dims),
+                               1.0 + rng.rand(dims)),
+        LdaParams(rng.randn(dims, 1), np.zeros((dims, 1)), np.array([0, 1]),
+                  np.zeros((2, dims)), 0.1, 0.5))
+    decoder.decoding_model_params = {
+        'pre_context': eeg_pre, 'post_context': eeg_post,
+        'input2_pre_context': audio_pre, 'input2_post_context': audio_post}
+    return decoder
+
+
+@pytest.mark.parametrize('pipeline', [False, True])
+@pytest.mark.parametrize('lags', [(0, 36, 15, 15), (2, 3, 0, 9)])
+def test_raw_windows_join_and_split_as_host_stacks(rng, lags, pipeline):
+    """EEG and audio post contexts that differ (36 against 15 at
+    codelab widths; the audio's the longer in the second case): one
+    stream's completed rows wait for the others', so its pending raw
+    windows join across pushes and split at each decode. The decoder
+    gets the host-stacked server's rows, bit for bit, and the same
+    decisions come out."""
+    channels = 4
+    decoder = _context_decoder(channels, *lags)
+    chunks = [5, 32, 1, 40, 32, 17, 32, 64, 3, 32, 32, 100, 32]
+    eeg = rng.randn(sum(chunks), channels).astype(np.float32)
+    a1, a2 = (rng.randn(sum(chunks), 1).astype(np.float32)
+              for _ in range(2))
+    runs = []
+    for kind in (serve.StreamingAttentionServer, HostStackedServer):
+        server = kind(decoder, eeg_channels=channels, window_width=40,
+                      window_step=20, pipeline=pipeline)
+        calls = []
+        name = 'infer_pair_async' if pipeline else 'infer_pair'
+        infer = getattr(decoder, name)
+
+        def taped(*args, infer=infer, calls=calls):
+            calls.append([np.asarray(a) for a in args])
+            return infer(*args)
+        setattr(decoder, name, taped)
+        decisions, start = [], 0
+        for c in chunks:
+            decisions += server.push(eeg[start:start + c],
+                                     a1[start:start + c], a2[start:start + c])
+            start += c
+        decisions += server.flush()
+        delattr(decoder, name)
+        runs.append((calls, decisions))
+    (got_calls, got), (want_calls, want) = runs
+    assert len(got_calls) == len(want_calls) > 5
+    for g, w in zip(got_calls, want_calls):
+        for a, b in zip(g, w):
+            assert a.dtype == b.dtype == np.float32
+            np.testing.assert_array_equal(a, b)
+    assert len(got) == len(want) > 10
+    for g, w in zip(got, want):
+        g.pop('latency_ms'), w.pop('latency_ms')
+        assert g == w
 
 
 @pytest.mark.parametrize('decision', ['wta', 'stepped', 'ssd'])
