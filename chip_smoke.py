@@ -1118,18 +1118,11 @@ def check_against_plain(decisions, model_dir, stream,
 
 
 def reset_launches():
-    from telluride_decoding_torch.ops.decode_kernel import fused_cca_decode
-    from telluride_decoding_torch.ops.fused_frontend import (
-        fused_envelope_lagstack)
-    from telluride_decoding_torch.ops.lagstack import lag_stack
-    from telluride_decoding_torch.ops.ssd_update import (ssd_sequence,
-                                                         ssd_update)
-    counters = {'fused_cca_decode': fused_cca_decode, 'lag_stack': lag_stack,
-                'fused_envelope_lagstack': fused_envelope_lagstack,
-                'ssd_update': ssd_update, 'ssd_sequence': ssd_sequence}
-    for fn in counters.values():
-        fn.launches = 0
-    return lambda: {name: fn.launches for name, fn in counters.items()}
+    from telluride_decoding_torch import kernels
+    names = ('fused_cca_decode', 'lag_stack', 'fused_envelope_lagstack',
+             'ssd_update', 'ssd_sequence')
+    kernels.launches.clear()
+    return lambda: {name: kernels.launches[name] for name in names}
 
 
 def require_launched(launches, names, path):
@@ -1702,8 +1695,8 @@ def run_regression(torch, test_name, data_dir, work_dir, device, post,
     the CSV's [lambdas, files] grid, seconds, the driver's stage report,
     K2's launches and the card's peak allocation."""
     import io
+    from telluride_decoding_torch import kernels
     from telluride_decoding_torch.cli import regression
-    from telluride_decoding_torch.ops.lagstack import lag_stack
     summary_dir = os.path.join(work_dir, test_name + '_summary')
     csv_file = os.path.join(work_dir, test_name + '.csv')
     shutil.rmtree(summary_dir, ignore_errors=True)
@@ -1716,7 +1709,7 @@ def run_regression(torch, test_name, data_dir, work_dir, device, post,
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    before = lag_stack.launches
+    before = kernels.launches['lag_stack']
     out = io.StringIO()
     t0 = time.perf_counter()
     with environ(TDT_DEVICE_CONTEXT='1' if device_context else '0'), \
@@ -1733,7 +1726,7 @@ def run_regression(torch, test_name, data_dir, work_dir, device, post,
     return dict(grid=grid, seconds=seconds,
                 report=text[text.index('jackknife_over_regularizations '
                                        'timing:'):].strip(),
-                launches=lag_stack.launches - before,
+                launches=kernels.launches['lag_stack'] - before,
                 peak_gb=(torch.cuda.max_memory_allocated() / 1e9
                          if on_card else None))
 
@@ -1956,8 +1949,8 @@ def run_cohort(torch, subjects, work, device, post=POST, extra=(),
     printed table, seconds, K2's launches and the card's peak
     allocation."""
     import io
+    from telluride_decoding_torch import kernels
     from telluride_decoding_torch.cli import cohort
-    from telluride_decoding_torch.ops.lagstack import lag_stack
     shutil.rmtree(work, ignore_errors=True)
     argv = [a for d in subjects.values() for a in ('--subject_dir', d)]
     argv += cohort_argv(post) + list(extra) + [
@@ -1968,7 +1961,7 @@ def run_cohort(torch, subjects, work, device, post=POST, extra=(),
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    before = lag_stack.launches
+    before = kernels.launches['lag_stack']
     out = io.StringIO()
     t0 = time.perf_counter()
     with environ(**(environment or {})), contextlib.redirect_stdout(out):
@@ -1984,7 +1977,7 @@ def run_cohort(torch, subjects, work, device, post=POST, extra=(),
             raise AssertionError('cohort subject %s: non-finite '
                                  'correlations' % name)
     return dict(summary=summary, grids=grids, table=table, seconds=seconds,
-                launches=lag_stack.launches - before,
+                launches=kernels.launches['lag_stack'] - before,
                 peak_gb=(torch.cuda.max_memory_allocated() / 1e9
                          if on_card else None))
 
@@ -2685,6 +2678,7 @@ def s1_sequence_check(torch, device, model_dir, data_dir):
     SSD_TOL of ssd_sequence_reference on the card over the first
     SSD_PLAIN_WINDOWS windows of each stream; the whole launch's device
     ms (CUDA events), per window of its longest stream."""
+    from telluride_decoding_torch import kernels
     from telluride_decoding_torch.cli import infer
     from telluride_decoding_torch.ops import ssd_update as ops
     decoder = infer.load_model(model_dir, 'lda', device)
@@ -2709,18 +2703,19 @@ def s1_sequence_check(torch, device, model_dir, data_dir):
         offsets=np.cumsum([0] + [len(r) for r in r1s]),
         outer_iter=first.outer_iter, inner_iter=first.inner_iter,
         newton_iter=first.newton_iter, k_w=first.k_w, at=-1 - first.k_f)
-    before = (ops.ssd_update.launches, ops.ssd_sequence.launches)
+    before = kernels.launches.copy()
     got = type(first).attention_sequences(by_sequence, r1s, r2s)
     t0 = time.perf_counter()
     want = [[dec.attention(a, b) for a, b in zip(r1, r2)]
             for dec, r1, r2 in zip(by_window, r1s, r2s)]
     window_s = time.perf_counter() - t0
     windows = ops.sequence_windows(launch['offsets'], launch['k_w'])
-    if (ops.ssd_sequence.launches - before[1] != 1 or
-            ops.ssd_update.launches - before[0] != sum(windows)):
+    launched = kernels.launches - before
+    if (launched['ssd_sequence'] != 1 or
+            launched['ssd_update'] != sum(windows)):
         raise AssertionError('the sequence check launched S1 %d / %d times'
-                             % (ops.ssd_sequence.launches - before[1],
-                                ops.ssd_update.launches - before[0]))
+                             % (launched['ssd_sequence'],
+                                launched['ssd_update']))
     same = got == want and all(
         a.z_dyn == b.z_dyn and a.eta_dyn == b.eta_dyn and torch.equal(
             ops.pack(list(a._state)), ops.pack(list(b._state)))
@@ -4032,18 +4027,18 @@ def run_aot(device, models, stream, work):
     export seconds, each serve's (decisions, summary, seconds, K1
     launches) and the serve_lines decisions."""
     import io
+    from telluride_decoding_torch import kernels
     from telluride_decoding_torch.cli import export_aot, serve
-    from telluride_decoding_torch.ops.decode_kernel import fused_cca_decode
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     artifacts, export_s, served = {}, {}, {}
 
     def replay(key, path, extra=()):
-        before = fused_cca_decode.launches
+        before = kernels.launches['fused_cca_decode']
         decisions, summary, seconds = serve_stream(path, stream, device, 100,
                                                    extra)
         served[key] = (decisions, summary, seconds,
-                       fused_cca_decode.launches - before)
+                       kernels.launches['fused_cca_decode'] - before)
     first = next(iter(models))
     exports = [(name, str(device), name) for name in models]
     exports.append((first + ' exported on the cpu', 'cpu', first))
@@ -4967,8 +4962,9 @@ def main():
                 sweep[name] + cohort[name] + attention[name] +
                 raw_ingest[name] + model_files[name] + sgd[name] + aot[name]
                 + several[name] + walkthrough[name] for name in kuleuven}
-    log('K2 launches by phase: ' + json.dumps({
-        name: phase['lag_stack'] for name, phase in (
+    log('K1 and K2 launches by phase: ' + json.dumps({
+        name: [phase['fused_cca_decode'], phase['lag_stack']]
+        for name, phase in (
             ('4 codelab', codelab), ('7 KULeuven', kuleuven),
             ('8 decoding', decoding), ('9 sweep', sweep),
             ('10 cohort', cohort), ('11 attention', attention),

@@ -7,18 +7,18 @@ rotate both inputs, form the normalized correlation, project through the
 LDA, one score per frame (windows of T = 1). For a deep CCA model K1 runs
 on the towers' outputs (plain matrix products, bias adds and ReLUs in
 torch first), with the model's final CCA as its rotations. ``infer_pair``
-scores both audio streams against one read of the brain window; on the
-card, a push of host arrays whose shape was seen before replays a
-resident push plan (decode/push_plan.py): one copy in, the towers of a
-deep CCA model, K1 and one copy out as one CUDA graph, and one wait. The
-serving loop's pushes bring raw context windows (``LagRows``), which the
-plan stacks on the card with K2 inside the graph; off the plan they are
-stacked on the host.
-``frame_scores``
-scores a whole test split in one ``infer_one`` call, so its K1 launch
-covers every frame of the split. The other reductions, and the linear
-regression decoder, run as plain torch, as ``_reduce`` does in the JAX
-package.
+scores both audio streams against one read of the brain window. The
+serving loop's pushes bring raw context windows (``LagRows``): the
+decoder uploads their frames and stacks them where it uses them, with
+K2 on the card. One method, ``Decoder._scores_on``, composes a call
+(lag stack, towers, K1) on every route; on the card, a push of host
+arrays or raw windows whose shape was seen before replays a resident
+push plan (decode/push_plan.py) that captured it: one copy in, that
+composition and one copy out as one CUDA graph, and one wait.
+``frame_scores`` scores a whole test split in one ``infer_one`` call, so
+its K1 launch covers every frame of the split. The other reductions, and
+the linear regression decoder, run as plain torch, as ``_reduce`` does
+in the JAX package.
 
 ``decoder_model.json`` stays wire-compatible with the JAX package and the
 reference: the same ModelParams namedtuple structure, complex arrays
@@ -30,7 +30,9 @@ from __future__ import annotations
 import collections
 import json
 import os
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+import weakref
+from typing import (Any, Callable, Dict, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -44,7 +46,7 @@ from telluride_decoding_torch.ops.decode_kernel import (FoldedDecode,
                                                         fused_cca_decode,
                                                         kernel_operands,
                                                         prepared_operands)
-from telluride_decoding_torch.ops.lagstack import LagRows
+from telluride_decoding_torch.ops.lagstack import LagRows, lag_stack
 from telluride_decoding_torch.solvers import lda as scaled_lda
 from telluride_decoding_torch.utils import profiling
 
@@ -91,12 +93,23 @@ def _reduce(correlations: torch.Tensor, reduction: str,
     raise ValueError('Unknown reduction technique: %s.' % reduction)
 
 
-class _Pipeline(collections.namedtuple('_Pipeline',
-                                       ['folded', 'correlate_reduce'])):
-    """What a decoder serves with, built from the current statistics:
-    ``folded`` (kernel K1's parameters, which rotate the kernel inputs of
-    ``Decoder._kernel_inputs``) when the fused decode applies, else None
+class _Pipeline(collections.namedtuple(
+        '_Pipeline', ['folded', 'towers', 'correlate_reduce'])):
+    """What a decoder serves with, built from the current model and
+    statistics: ``folded`` (kernel K1's parameters) and ``towers`` (a
+    deep CCA model's ``Decoder._towers()``, which holds the weights it
+    reads, or None) when the fused decode applies, else None and None
     and ``correlate_reduce(r1, r2)`` in plain torch."""
+
+
+def _frames(value):
+    """A LagRows' raw frames; any other input is its own."""
+    return value.frames if isinstance(value, LagRows) else value
+
+
+def _lags(value) -> Tuple[int, int]:
+    """A LagRows' (pre, post); (0, 0) for any other input."""
+    return (value.pre, value.post) if isinstance(value, LagRows) else (0, 0)
 
 
 class PairProgram(torch.nn.Module):
@@ -119,7 +132,8 @@ class PairProgram(torch.nn.Module):
         # A submodule, so the model's buffers are the program's.
         self.model = decoder.decoding_model
         self._dims = 0
-        folded, self._correlate_reduce = decoder._build_pipeline()
+        folded, self._towers, self._correlate_reduce = (
+            decoder._build_pipeline())
         if folded is not None:
             self._dims = int(folded.rot1.shape[1])
             for name, tensor in zip(('rot1', 'rot2', 'consts'),
@@ -129,8 +143,8 @@ class PairProgram(torch.nn.Module):
     def forward(self, input_1, input_2a, input_2b, output_a, output_b):
         decoder = self._decoder
         if self._dims:
-            x1, (x2a, x2b) = decoder._kernel_inputs(input_1,
-                                                    [input_2a, input_2b])
+            x1, (x2a, x2b) = decoder._kernel_inputs(
+                self._towers, input_1, [input_2a, input_2b])
             scores = torch.ops.tdt.fused_cca_decode_f32(
                 x1[:, None, :], x2a[:, None, :], x2b[:, None, :],
                 self.rot1, self.rot2, self.consts, self._dims)
@@ -372,16 +386,14 @@ class Decoder:
         del mean_x, mean_y, power, lda_w, lda_slope, lda_intercept
         return None
 
-    def _kernel_inputs(self, x1: torch.Tensor, x2s: List[torch.Tensor]
+    def _kernel_inputs(self, towers: Optional[Callable], x1: torch.Tensor,
+                       x2s: List[torch.Tensor]
                        ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """What kernel K1 rotates: the inputs themselves, or the outputs
-        of ``_towers()`` on them (span ``decoder.towers``, and one count
-        of ``decoder.tower_passes`` a stream)."""
-        towers = self._towers()
+        of a pipeline's ``towers`` on them (span ``decoder.towers``)."""
         if towers is None:
             return x1, x2s
         with profiling.span('decoder.towers'):
-            profiling.count(profiling.TOWER_PASSES, 1 + len(x2s))
             return towers(x1, x2s)
 
     def _towers(self) -> Optional[Callable]:
@@ -424,92 +436,125 @@ class Decoder:
             correlations = (r1 - mean_x) * (r2 - mean_y) / power
             return _reduce(correlations, reduction, lda_w, lda_slope,
                            lda_intercept)
-        return _Pipeline(folded, correlate_reduce)
+        return _Pipeline(folded, None if folded is None else self._towers(),
+                         correlate_reduce)
 
-    def _invalidate_stale_pipelines(self):
-        """Drops the cached pipeline when the model was refit or
+    def _current_pipeline(self) -> _Pipeline:
+        """The cached pipeline, built anew when the model was refit or
         replaced (its tensors derive from the model's parameters)."""
         model = self._decoding_model
         key = (id(model), getattr(model, 'params_version', None))
         if key != self._built_key:
-            self._pipeline = None
             self._built_key = key
-
-    @torch.no_grad()
-    def _scores(self, x1: torch.Tensor, x2s: List[torch.Tensor],
-                outputs: List[Any]) -> List[torch.Tensor]:
-        self._invalidate_stale_pipelines()
+            self._pipeline = None
         if self._pipeline is None:
             self._pipeline = self._build_pipeline()
-        folded, correlate_reduce = self._pipeline
-        if folded is not None:
-            # Kernel K1, per-frame scores: windows of one frame.
-            x1, x2s = self._kernel_inputs(x1, x2s)
-            scores = fused_cca_decode(
-                folded, x1[:, None, :], x2s[0][:, None, :],
-                x2s[1][:, None, :] if len(x2s) > 1 else None)
-            return [scores] if len(x2s) == 1 else list(scores)
-        return [correlate_reduce(*self._decode_tensors(
-            {'input_1': x1, 'input_2': x2}, self._tensor(y)))
-            for x2, y in zip(x2s, outputs)]
+        return self._pipeline
+
+    @torch.no_grad()
+    def _scores_on(self, pipeline: _Pipeline,
+                   frames: Sequence[torch.Tensor],
+                   lags: Sequence[Tuple[int, int]], outputs=()):
+        """The scores of input_1 against each input_2 stream, from each
+        stream's frames on this decoder's device and its (pre, post):
+        K1's [streams, rows], or a list of each stream's scores. Every
+        route of a served call runs this; a push plan captures it.
+
+        A stream with context is lag-stacked (K2 on the card; on the CPU
+        the plain stack), row t the row of frame pre + t: a copy, the
+        host stack's bits. Then a deep CCA model's towers and kernel K1,
+        or, for a pipeline without K1, ``_decode_tensors`` and
+        ``correlate_reduce`` against ``outputs``."""
+        x1, *x2s = (lag_stack(x, 0, pre + post)[:len(x) - pre - post]
+                    if pre + post else x
+                    for x, (pre, post) in zip(frames, lags))
+        if pipeline.folded is None:
+            return [pipeline.correlate_reduce(*self._decode_tensors(
+                {'input_1': x1, 'input_2': x2}, self._tensor(y)))
+                for x2, y in zip(x2s, outputs)]
+        x1, x2s = self._kernel_inputs(pipeline.towers, x1, x2s)
+        # Kernel K1, per-frame scores: windows of one frame.
+        scores = fused_cca_decode(
+            pipeline.folded, x1[:, None, :], x2s[0][:, None, :],
+            x2s[1][:, None, :] if len(x2s) > 1 else None)
+        return scores if len(x2s) > 1 else scores[None]
+
+    def _upload(self, inputs):
+        """Each input's frames on this decoder's device, and its lags."""
+        return ([self._tensor(_frames(v)) for v in inputs],
+                [_lags(v) for v in inputs])
+
+    def _count_served(self, pipeline: _Pipeline, lags):
+        """Counts what one call served, while a profiler runs: a deep CCA
+        model's tower passes, one a stream, and, on the card, one device
+        stack where a stream had context."""
+        if pipeline.towers is not None:
+            profiling.count(profiling.TOWER_PASSES, len(lags))
+        if self._device.type == 'cuda' and any(map(sum, lags)):
+            profiling.count(profiling.DEVICE_STACKS)
 
     def infer_one(self, input_dict, output) -> np.ndarray:
         """Scores of one minibatch: [N] (or [N, D] for 'all')."""
-        (scores,) = self._scores(self._tensor(input_dict['input_1']),
-                                 [self._tensor(input_dict['input_2'])],
-                                 [output])
+        pipeline = self._current_pipeline()
+        frames, lags = self._upload((input_dict['input_1'],
+                                     input_dict['input_2']))
+        (scores,) = self._scores_on(pipeline, frames, lags, [output])
+        self._count_served(pipeline, lags)
         return scores.cpu().numpy()
 
     def _pair_scores(self, input_1, input_2a, input_2b, output_a,
-                     output_b) -> List[torch.Tensor]:
+                     output_b):
+        pipeline = self._current_pipeline()
         with profiling.span('decoder.copy_in'):
-            x1 = self._tensor(input_1)
-            x2s = [self._tensor(input_2a), self._tensor(input_2b)]
+            frames, lags = self._upload((input_1, input_2a, input_2b))
         with profiling.span('decoder.launch'):
-            return self._scores(x1, x2s, [output_a, output_b])
+            scores = self._scores_on(pipeline, frames, lags,
+                                     (output_a, output_b))
+        self._count_served(pipeline, lags)
+        return scores
 
     def _plan_key(self, input_1, input_2a, input_2b):
-        """(key, operands, folded) of the resident push plan for these
-        inputs, or None where the plan does not apply: a decoder off the
-        card, a pipeline without K1 (no CCA or deep CCA model with the
-        LDA reduction), or inputs that are not all numpy arrays or all
-        LagRows (raw windows, the two audio windows alike) of [rows, F1]
-        and [rows, F2] with rows >= 1 (a deep CCA model's F1 and F2 are
-        its towers' input widths).
-
-        The key is (rows, F1, F2, K1's operand addresses, the windows:
-        (C, pre, post) of input_1, of the input_2 streams); a host array
-        of F columns is a window with no context, (F, 0, 0). The plan
-        stages the windows' frames and stacks those with context on the
-        card. A refit, a ``set_params`` or new statistics rebuild the
-        pipeline and so K1's operands, which no live plan's operands
-        share: a new key. A deep CCA plan's towers hold the weights of
-        the pipeline it was captured under."""
+        """(pipeline, rows, each stream's (pre, post)): the key of the
+        resident push plan for these inputs, or None where the plan does
+        not apply: a decoder off the card, a pipeline without K1 (no CCA
+        or deep CCA model with the LDA reduction), or inputs that are not
+        all numpy arrays or all LagRows (raw windows, the two audio
+        windows alike) of [rows, F1] and [rows, F2] with rows >= 1 (a
+        deep CCA model's F1 and F2 are its towers' input widths). A host
+        array is a window with no context. A refit, a ``set_params`` or
+        new statistics build a new pipeline, so a new key."""
         if self._device.type != 'cuda':
             return None
         inputs = (input_1, input_2a, input_2b)
-        if all(isinstance(v, np.ndarray) and v.ndim == 2 for v in inputs):
-            lags = [(v.shape[1], 0, 0) for v in inputs]
-        elif all(isinstance(v, LagRows) for v in inputs):
-            lags = [(v.frames.shape[1], v.pre, v.post) for v in inputs]
-        else:
+        if not (all(isinstance(v, np.ndarray) and v.ndim == 2
+                    for v in inputs)
+                or all(isinstance(v, LagRows) for v in inputs)):
             return None
-        if lags[1] != lags[2]:
-            return None
-        self._invalidate_stale_pipelines()
-        if self._pipeline is None:
-            self._pipeline = self._build_pipeline()
-        folded = self._pipeline.folded
-        if folded is None:
+        lags = tuple(_lags(v) for v in inputs)
+        pipeline = self._current_pipeline()
+        if lags[1] != lags[2] or pipeline.folded is None:
             return None
         rows = input_1.shape[0]
-        f1, f2 = self._input_widths(folded)
+        f1, f2 = self._input_widths(pipeline.folded)
         if not (rows and input_1.shape == (rows, f1)
                 and input_2a.shape == input_2b.shape == (rows, f2)):
             return None
-        operands = prepared_operands(folded, torch.float32)
-        return ((rows, f1, f2, operands.pointers, (lags[0], lags[1])),
-                operands, folded)
+        return pipeline, rows, lags
+
+    def _capture(self, key, inputs) -> push_plan.PushPlan:
+        """The push plan of ``key``: ``_scores_on`` of its pipeline and
+        lags on frames of the inputs' shapes, as a function that holds
+        what the graph reads (the pipeline; K1's operands, which
+        prepared_operands' LRU may drop) and the decoder weakly (a cycle
+        would leave the graphs to the cyclic collector, which may free
+        them inside another capture and so break it)."""
+        pipeline, rows, lags = key
+        operands = prepared_operands(pipeline.folded, torch.float32)
+        decoder = weakref.proxy(self)
+        return push_plan.PushPlan(
+            lambda frames, held=operands: decoder._scores_on(
+                pipeline, frames, lags),
+            [_frames(v).shape for v in inputs], rows, self._device)
 
     def infer_pair(self, input_1, input_2a, input_2b, output_a,
                    output_b) -> Tuple[np.ndarray, np.ndarray]:
@@ -519,27 +564,24 @@ class Decoder:
 
         Where ``_plan_key`` finds a plan's key seen before, the push
         replays that resident plan (decode/push_plan.py), captured on
-        the key's second sight, a deep CCA model's towers inside it, and
-        for raw windows (LagRows, which the serving loop hands over) the
-        lag stacks on the card; the scores are the same bits. Off the
-        plan, LagRows are stacked on the host."""
+        the key's second sight; the scores are the same bits."""
         with profiling.span('decoder.infer_pair'):
-            found = self._plan_key(input_1, input_2a, input_2b)
-            if found is not None:
-                key, operands, folded = found
+            key = self._plan_key(input_1, input_2a, input_2b)
+            if key is not None:
+                inputs = (input_1, input_2a, input_2b)
                 plan = self._push_plans.plan(
-                    key, operands, lambda: push_plan.PushPlan(
-                        folded, operands, *key[:3], self._device,
-                        self._towers(), key[4]))
+                    key, lambda: self._capture(key, inputs))
                 if plan is not None:
-                    return plan.run(input_1, input_2a, input_2b)
+                    scores = plan.run([_frames(v) for v in inputs])
+                    self._count_served(key[0], key[2])
+                    return scores
             scores_a, scores_b = self._pair_scores(
                 input_1, input_2a, input_2b, output_a, output_b)
             with profiling.span('decoder.copy_out'):
                 profiling.host_wait(self._device, 2)
                 scores = scores_a.cpu().numpy(), scores_b.cpu().numpy()
-            if found is not None:
-                self._push_plans.saw(found[0])
+            if key is not None:
+                self._push_plans.saw(key)
             return scores
 
     def infer_pair_async(self, input_1, input_2a, input_2b, output_a,
@@ -547,12 +589,13 @@ class Decoder:
         """infer_pair without waiting for the scores (counterpart of
         telluride_decoding_tpu/decode/infer_decoder.py:669-681).
 
-        On the card it launches what infer_pair launches (one K1 launch
-        with the fused decode), issues both device-to-host copies into
-        pinned host tensors without blocking, records a CUDA event and
-        returns a PendingPair: unpacking it gives two score handles that
-        ``np.asarray`` turns into arrays after waiting on the event, and
-        ``harvest()`` gives both. On the CPU it returns the two arrays."""
+        On the card it launches what infer_pair launches without a plan
+        (with the fused decode, one K1 launch after the lag stacks),
+        issues both device-to-host copies into pinned host tensors
+        without blocking, records a CUDA event and returns a PendingPair:
+        unpacking it gives two score handles that ``np.asarray`` turns
+        into arrays after waiting on the event, and ``harvest()`` gives
+        both. On the CPU it returns the two arrays."""
         with profiling.span('decoder.infer_pair'):
             scores = self._pair_scores(input_1, input_2a, input_2b,
                                        output_a, output_b)

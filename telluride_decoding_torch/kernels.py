@@ -10,12 +10,14 @@ builds nothing: the CPU tests import every module of the port.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
-exception. A kernel that cannot be built, loaded or launched raises
-:class:`KernelError`.
+exception and counts a launch that succeeded in :data:`launches`, under
+the kernel's name. A kernel that cannot be built, loaded or launched
+raises :class:`KernelError`.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -35,6 +37,8 @@ LINK_FLAGS = ('-shared', '-gencode', 'arch=compute_90a,code=sm_90a')
 _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
 _lib: Optional[ctypes.CDLL] = None
+# Launches that succeeded, by the name each wrapper gives check().
+launches: collections.Counter = collections.Counter()
 
 
 class KernelError(RuntimeError):
@@ -137,10 +141,12 @@ def library() -> ctypes.CDLL:
 
 
 def check(code: int, what: str) -> None:
-    """Raises if a C entry point reported a CUDA error."""
+    """Raises if a C entry point reported a CUDA error, else counts one
+    launch of ``what``."""
     if code != 0:
         message = library().tdt_error_string(code).decode()
         raise KernelError('%s: CUDA error %d (%s)' % (what, code, message))
+    launches[what] += 1
 
 
 def stream_handle(device) -> int:

@@ -24,7 +24,7 @@ scores are windows of T = 1.
     tdt::fused_cca_decode_f32 on the operands of kernel_operands, so
     that torch.export keeps K1 as one node of an exported program
     (decode/aot.py); it launches through fused_cca_decode's own launch
-    code and counts in fused_cca_decode.launches.
+    code and counts as its launch (``kernels.launches``).
 """
 
 from __future__ import annotations
@@ -418,7 +418,6 @@ def _launch(x1: torch.Tensor, x2: torch.Tensor, x2b: Optional[torch.Tensor],
     code = plan.entry(*pointers, *operand_pointers(), *outputs, *plan.args,
                       kernels.stream_handle(x1.device))
     kernels.check(code, 'fused_cca_decode')
-    fused_cca_decode.launches += 1
     return out
 
 
@@ -443,9 +442,6 @@ def fused_cca_decode(folded: FoldedDecode, x1: torch.Tensor,
     return _launch(x1, x2, x2b, folded.rot1, folded.rot2,
                    folded.rot1.shape[1], folded,
                    lambda: prepared_operands(folded, x1.dtype).pointers)
-
-
-fused_cca_decode.launches = 0
 
 
 def kernel_operands(folded: FoldedDecode) -> tuple:

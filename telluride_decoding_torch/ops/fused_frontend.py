@@ -158,8 +158,4 @@ def fused_envelope_lagstack(
         audio.data_ptr(), t1.data_ptr(), t2.data_ptr(), out.data_ptr(),
         num_out, valid_out, pre, post, float(exponent),
         kernels.stream_handle(audio.device)), 'fused_envelope_lagstack')
-    fused_envelope_lagstack.launches += 1
     return out
-
-
-fused_envelope_lagstack.launches = 0

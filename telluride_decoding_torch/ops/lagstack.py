@@ -58,7 +58,7 @@ class LagRows:
     gives the rows, the bits of ``lag_stack_np(frames, pre, post)[pre:pre
     + n]``. A 32-frame push at codelab widths holds 68 x 69 floats where
     its rows take 32 x 2553, so the rows can be stacked where they are
-    used (the decoder's push plan stacks them on the card with K2).
+    used (the decoder stacks them on the card with K2).
     """
 
     __slots__ = ('frames', 'pre', 'post')
@@ -155,8 +155,4 @@ def lag_stack(x: torch.Tensor, pre: int, post: int) -> torch.Tensor:
     kernels.check(lib.tdt_lag_stack_f32(
         x.data_ptr(), out.data_ptr(), n, c, pre, post,
         kernels.stream_handle(x.device)), 'lag_stack')
-    lag_stack.launches += 1
     return out
-
-
-lag_stack.launches = 0

@@ -290,7 +290,7 @@ def ssd_update(state: SsdState, r1: torch.Tensor, r2: torch.Tensor,
 class WindowLauncher:
     """S1's window form bound to fixed buffers (the arguments of
     ssd_update, the state on the card): checked once, then each call is
-    one launch on the current stream and adds one to ssd_update.launches.
+    one launch on the current stream (counted as ``ssd_update``).
     The serving decoder keeps one, so that a window costs the launch and
     not the checks."""
 
@@ -329,10 +329,6 @@ class WindowLauncher:
             raise ValueError('ssd_update: a pinned host buffer is not '
                              'mapped into the card\'s address space.')
         kernels.check(code, 'ssd_update')
-        ssd_update.launches += 1
-
-
-ssd_update.launches = 0
 
 
 def _segments(offsets, k_w) -> List[int]:
@@ -444,9 +440,4 @@ def ssd_sequence(states: torch.Tensor, consts: torch.Tensor,
         r2_series.data_ptr(), offsets_dev.data_ptr(), out.data_ptr(),
         streams, at, k_w, outer_iter, inner_iter, newton_iter,
         kernels.stream_handle(device)), 'ssd_sequence')
-    ssd_sequence.launches += 1
     return states, out
-
-
-ssd_sequence.launches = 0
-

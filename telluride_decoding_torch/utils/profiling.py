@@ -13,9 +13,9 @@ The port's one span and counter recorder: ``span(name, request)`` around
 a piece of host work, ``count(name, n)`` (``host_wait`` for the counter
 ``host_waits``, each place the host blocks on the card; ``GRAPH_REPLAYS``
 and ``GRAPH_CAPTURES`` for the decoder's resident push plans,
-decode/push_plan.py, and ``DEVICE_STACKS`` for those that stack raw
-context windows on the card; ``TOWER_PASSES`` for a deep CCA decoder's
-tower passes), ``recorded()`` and ``reset()``. It records while a
+decode/push_plan.py, and ``DEVICE_STACKS`` for decoder calls that
+stack raw context windows on the card; ``TOWER_PASSES`` for a deep CCA
+decoder's tower passes), ``recorded()`` and ``reset()``. It records while a
 torch profiler runs, and only then: ``torch.profiler.profile`` (the
 benchmark's traced slice) or ``trace`` (an operator's ``--trace_dir``).
 Off, a span costs one read of torch's own flag and hands back a shared
@@ -50,8 +50,8 @@ GRAPH_CAPTURES = 'decoder.graph_captures'
 # A deep CCA decoder's tower passes served (one a stream: 3 a pair), eager
 # or inside a push plan's graph.
 TOWER_PASSES = 'decoder.tower_passes'
-# Pushes whose raw context windows a push plan's graph lag-stacked on the
-# card (one a replay of a raw-window plan).
+# Decoder calls whose raw context windows were lag-stacked on the card
+# (one a call, with or without a push plan).
 DEVICE_STACKS = 'decoder.device_stacks'
 DROPPED = 'dropped'
 CAP = 1 << 20

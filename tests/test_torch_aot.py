@@ -31,6 +31,7 @@ from telluride_decoding_tpu.decode import aot as jax_aot
 from telluride_decoding_tpu.decode import infer_decoder as jax_infer
 from telluride_decoding_tpu.models import BrainModelDCCA as JaxDCCA
 from telluride_decoding_tpu.models import BrainModelDNN as JaxDNN
+from telluride_decoding_torch import kernels
 from telluride_decoding_torch.cli import export_aot
 from telluride_decoding_torch.cli import serve
 from telluride_decoding_torch.cli.infer import load_model
@@ -467,9 +468,9 @@ def test_plain_program_holds_no_k1(families, family):
 def test_k1_op_counts_as_k1_where_it_launches(families):
     """On the CPU the op runs K1's plain version, so the launch counter
     stays (tests/test_torch_cuda.py counts the card's launches)."""
-    before = decode_kernel.fused_cca_decode.launches
+    before = kernels.launches['fused_cca_decode']
     families['cca']['torch']['exported'].infer_pair(*_inputs('cca', 32, 1))
-    assert decode_kernel.fused_cca_decode.launches == before
+    assert kernels.launches['fused_cca_decode'] == before
 
 
 def test_fresh_process_loads_through_the_port(families):

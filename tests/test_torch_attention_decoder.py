@@ -20,6 +20,7 @@ import torch
 
 import jax.numpy as jnp
 from telluride_decoding_tpu.decide import attention_decoder as jax_ad
+from telluride_decoding_torch import kernels
 from telluride_decoding_torch.decide import attention_decoder as ad
 from telluride_decoding_torch.ops import ssd_update as ops
 
@@ -205,10 +206,10 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     state = port_state(random_state(rng, k_w), k_w)
     consts = port_constants(priors())
     r = torch.tensor([0.4, 0.6])
-    before = ops.ssd_update.launches
+    before = kernels.launches['ssd_update']
     got = ops.ssd_update(state, r, r * 0.5, consts, 2, 1, 2, k_w)
     want = ops.ssd_update_reference(state, r, r * 0.5, consts, 2, 1, 2, k_w)
-    assert ops.ssd_update.launches == before
+    assert kernels.launches['ssd_update'] == before
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
 
 

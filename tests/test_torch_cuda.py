@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from telluride_decoding_torch import kernels
 from telluride_decoding_torch.ops import (decode_kernel, fused_frontend,
                                           lagstack, ssd_update)
 
@@ -46,10 +47,10 @@ def cuda():
                                           (1237, 5, 3, 2), (7, 3, 5, 9)])
 def test_lag_stack_bit_exact(cuda, n, c, pre, post):
     x = torch.randn((n, c), device=cuda)
-    before = lagstack.lag_stack.launches
+    before = kernels.launches['lag_stack']
     got = lagstack.lag_stack(x, pre, post)
     torch.cuda.synchronize()
-    assert lagstack.lag_stack.launches == before + 1
+    assert kernels.launches['lag_stack'] == before + 1
     assert torch.equal(got, lagstack.lag_stack_reference(x, pre, post))
 
 
@@ -81,9 +82,9 @@ def test_fused_cca_decode_matches_plain(cuda, w, t, dtype):
     x1 = torch.randn((w, t, f1), device=cuda).to(dtype)
     x2a = torch.randn((w, t, f2), device=cuda).to(dtype)
     x2b = torch.randn((w, t, f2), device=cuda).to(dtype)
-    before = decode_kernel.fused_cca_decode.launches
+    before = kernels.launches['fused_cca_decode']
     got = decode_kernel.fused_cca_decode(folded, x1, x2a, x2b)
-    assert decode_kernel.fused_cca_decode.launches == before + 1
+    assert kernels.launches['fused_cca_decode'] == before + 1
     want = torch.stack([
         decode_kernel.fused_cca_decode_reference(folded, x1, x2a),
         decode_kernel.fused_cca_decode_reference(folded, x1, x2b)])
@@ -116,11 +117,11 @@ def test_fused_cca_decode_f32_matches_plain(cuda, w, t, d, f1):
     rng = np.random.RandomState(100 * d + f1 % 97)
     folded = _folded(cuda, rng, f1, 31, d)
     x1, x2a, x2b = _f32_windows(cuda, w * t + f1, w, t, f1)
-    before = decode_kernel.fused_cca_decode.launches
+    before = kernels.launches['fused_cca_decode']
     single = decode_kernel.fused_cca_decode(folded, x1, x2a)
-    assert decode_kernel.fused_cca_decode.launches == before + 1
+    assert kernels.launches['fused_cca_decode'] == before + 1
     pair = decode_kernel.fused_cca_decode(folded, x1, x2a, x2b)
-    assert decode_kernel.fused_cca_decode.launches == before + 2
+    assert kernels.launches['fused_cca_decode'] == before + 2
     want_a = decode_kernel.fused_cca_decode_reference(folded, x1, x2a)
     want_b = decode_kernel.fused_cca_decode_reference(folded, x1, x2b)
     torch.testing.assert_close(single, want_a, **F32_TOL)
@@ -152,10 +153,10 @@ def test_fused_cca_decode_f32_narrow_features(cuda, w, f1, d):
     rng = np.random.RandomState(10 * f1 + d)
     folded = _folded(cuda, rng, f1, f1, d)
     x1, x2a, x2b = _f32_windows(cuda, w + f1, w, 1, f1, f2=f1)
-    before = decode_kernel.fused_cca_decode.launches
+    before = kernels.launches['fused_cca_decode']
     single = decode_kernel.fused_cca_decode(folded, x1, x2a)
     pair = decode_kernel.fused_cca_decode(folded, x1, x2a, x2b)
-    assert decode_kernel.fused_cca_decode.launches == before + 2
+    assert kernels.launches['fused_cca_decode'] == before + 2
     want_a = decode_kernel.fused_cca_decode_reference(folded, x1, x2a)
     want_b = decode_kernel.fused_cca_decode_reference(folded, x1, x2b)
     torch.testing.assert_close(single, want_a, **F32_TOL)
@@ -220,10 +221,10 @@ def test_fused_cca_decode_bf16_matches_plain(cuda, w, t, d, f1, f2):
         return torch.randn((w, t, f), generator=gen, device=cuda).to(
             torch.bfloat16)
     x1, x2a, x2b = window(f1), window(f2), window(f2)
-    before = decode_kernel.fused_cca_decode.launches
+    before = kernels.launches['fused_cca_decode']
     single = decode_kernel.fused_cca_decode(folded, x1, x2a)
     pair = decode_kernel.fused_cca_decode(folded, x1, x2a, x2b)
-    assert decode_kernel.fused_cca_decode.launches == before + 2
+    assert kernels.launches['fused_cca_decode'] == before + 2
     want_a = decode_kernel.fused_cca_decode_reference(folded, x1, x2a)
     want_b = decode_kernel.fused_cca_decode_reference(folded, x1, x2b)
     torch.testing.assert_close(single, want_a, **BF16_TOL)
@@ -291,10 +292,10 @@ def test_fused_cca_decode_bf16_contains_non_finite_frames(cuda):
 ], ids=['ingest_30s', 'gate', 'valid_len'])
 def test_fused_envelope_lagstack_matches_plain(cuda, n, fs_in, fs_out, args):
     audio = torch.randn((n,), device=cuda)
-    before = fused_frontend.fused_envelope_lagstack.launches
+    before = kernels.launches['fused_envelope_lagstack']
     got = fused_frontend.fused_envelope_lagstack(audio, fs_in, fs_out, **args)
     torch.cuda.synchronize()
-    assert fused_frontend.fused_envelope_lagstack.launches == before + 1
+    assert kernels.launches['fused_envelope_lagstack'] == before + 1
     want = fused_frontend.fused_envelope_lagstack_reference(
         audio, fs_in, fs_out, **args)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
@@ -314,14 +315,14 @@ def test_compute_intensity_routes_to_kernel_and_keeps_stream_state(cuda):
     second = rng.randn(44100, 1).astype(np.float32)
     card = AudioFeatures('a', 44100, 32, device=cuda)
     cpu = AudioFeatures('a', 44100, 32, device='cpu')
-    before = fused_frontend.fused_envelope_lagstack.launches
+    before = kernels.launches['fused_envelope_lagstack']
     np.testing.assert_allclose(card.compute_intensity(first),
                                cpu.compute_intensity(first), atol=1e-4)
-    assert fused_frontend.fused_envelope_lagstack.launches == before + 1
+    assert kernels.launches['fused_envelope_lagstack'] == before + 1
     np.testing.assert_array_equal(card._buff, cpu._buff)
     np.testing.assert_allclose(card.compute_intensity(second),
                                cpu.compute_intensity(second), atol=1e-6)
-    assert fused_frontend.fused_envelope_lagstack.launches == before + 1
+    assert kernels.launches['fused_envelope_lagstack'] == before + 1
 
 
 @pytest.mark.cuda
@@ -332,9 +333,9 @@ def test_fused_cca_decode_f32_frame_scores_shape(cuda):
     rng = np.random.RandomState(11776)
     folded = _folded(cuda, rng, 2553, 31, 10)
     x1, x2, _ = _f32_windows(cuda, 11776, 11776, 1, 2553)
-    before = decode_kernel.fused_cca_decode.launches
+    before = kernels.launches['fused_cca_decode']
     got = decode_kernel.fused_cca_decode(folded, x1, x2)
-    assert decode_kernel.fused_cca_decode.launches == before + 1
+    assert kernels.launches['fused_cca_decode'] == before + 1
     torch.testing.assert_close(
         got, decode_kernel.fused_cca_decode_reference(folded, x1, x2),
         **F32_TOL)
@@ -368,9 +369,9 @@ def test_frame_scores_on_card_match_cpu(cuda):
     dataset = BrainDataset(x1, x2, out, out, batch_size=64, mode='test',
                            shuffle=False)
     want = cpu.frame_scores(dataset)
-    before = decode_kernel.fused_cca_decode.launches
+    before = kernels.launches['fused_cca_decode']
     got = card.frame_scores(dataset)
-    assert decode_kernel.fused_cca_decode.launches == before + 1
+    assert kernels.launches['fused_cca_decode'] == before + 1
     assert got[0].shape == (960,)
     np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(got[1], want[1])
@@ -404,9 +405,9 @@ def test_dcca_decoder_on_card_matches_cpu(cuda):
     card = CCADecoder(card_model, reduction='lda', device=cuda)
     card.model_params = cpu.model_params
     want = cpu.infer_pair(x1[:32], x2[:32], x2b[:32], x2[:32], x2b[:32])
-    before = decode_kernel.fused_cca_decode.launches
+    before = kernels.launches['fused_cca_decode']
     got = card.infer_pair(x1[:32], x2[:32], x2b[:32], x2[:32], x2b[:32])
-    assert decode_kernel.fused_cca_decode.launches == before + 1
+    assert kernels.launches['fused_cca_decode'] == before + 1
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
 
@@ -467,9 +468,9 @@ def test_sweep_grid_on_card_matches_cpu(cuda, grid):
                else list(np.logspace(-6, 2, 9)))
     sweep = (engine.cca_jackknife_sweep if grid == 'cca'
              else engine.ridge_jackknife_sweep)
-    before = lagstack.lag_stack.launches
+    before = kernels.launches['lag_stack']
     got = sweep(xs, ys, lambdas, context=ctx, device=cuda)
-    launches = lagstack.lag_stack.launches - before
+    launches = kernels.launches['lag_stack'] - before
     assert launches == len(xs) * (2 if grid == 'cca' else 1)
     want = sweep(xs, ys, lambdas, context=ctx, device='cpu')
     assert np.isfinite(got.correlations).all()
@@ -490,10 +491,10 @@ def test_streaming_moments_stack_each_file_on_card(cuda):
     for n in (700, 1300, 900):
         xs.append(rng.randn(n + ctx.x_post, 16).astype(np.float32))
         ys.append(rng.randn(n + ctx.y_post, 1).astype(np.float32))
-    before = lagstack.lag_stack.launches
+    before = kernels.launches['lag_stack']
     got = engine.per_file_stats(xs, ys, True, batch_bytes=0, context=ctx,
                                 frame_bucket=256, device=cuda)
-    assert lagstack.lag_stack.launches - before == 2 * len(xs)
+    assert kernels.launches['lag_stack'] - before == 2 * len(xs)
     want = engine.per_file_stats(xs, ys, True, batch_bytes=0, context=ctx,
                                  frame_bucket=256, device='cpu')
     for g, w in zip(got, want):
@@ -526,10 +527,10 @@ def test_cohort_on_card_matches_cpu(cuda, tmp_path):
         dnn_regressor='linear', attended_field='')
     subjects = cohort.discover_subjects(str(tmp_path), [])
     lambdas = list(np.logspace(-6, 2, 9))
-    before = lagstack.lag_stack.launches
+    before = kernels.launches['lag_stack']
     got, (mean, std) = cohort.run_cohort_sweep(my_flags, subjects, lambdas,
                                                device=cuda)
-    assert lagstack.lag_stack.launches - before == 12
+    assert kernels.launches['lag_stack'] - before == 12
     eager, _ = cohort.run_cohort_sweep(my_flags, subjects, lambdas,
                                        streaming=False, device=cuda)
     want, (want_mean, want_std) = cohort.run_cohort_sweep(
@@ -586,10 +587,10 @@ def _ssd_stream(cuda, k_w, windows, seed=0, zero_at=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize('k_w,windows', [(1, 12), (14, 40), (32, 20)])
 def test_ssd_update_matches_plain(cuda, k_w, windows):
-    before = ssd_update.ssd_update.launches
+    before = kernels.launches['ssd_update']
     inputs, r1, r2, got, final, consts = _ssd_stream(cuda, k_w, windows)
     torch.cuda.synchronize()
-    assert ssd_update.ssd_update.launches == before + windows
+    assert kernels.launches['ssd_update'] == before + windows
     new_state, z, eta = ssd_update.ssd_update_reference(
         ssd_update.state_views(inputs, k_w), r1, r2, consts, 20, 1, 10, k_w)
     assert torch.isfinite(got).all()
@@ -645,9 +646,9 @@ def test_ssd_decoder_on_card_matches_cpu(cuda):
     cpu = attention_decoder.create_attention_decoder('ssd', device='cpu')
     for dec in (card, cpu):
         dec.tune(r1[:20], r2[:20])
-    before = ssd_update.ssd_update.launches
+    before = kernels.launches['ssd_update']
     got = np.array([card.attention(a, b) for a, b in zip(r1, r2)])
-    assert ssd_update.ssd_update.launches - before == 50 - card.k_w + 1
+    assert kernels.launches['ssd_update'] - before == 50 - card.k_w + 1
     want = np.array([cpu.attention(a, b) for a, b in zip(r1, r2)])
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
@@ -700,12 +701,12 @@ def test_ssd_sequence_equals_window_launches(cuda, k_w, trips, windows):
     state, consts, r1, r2 = _ssd_series(cuda, k_w, windows + k_w - 1, 1)
     by_window = state.clone()
     want = _window_launches(by_window, consts, r1, r2, k_w, trips)
-    before = ssd_update.ssd_sequence.launches
+    before = kernels.launches['ssd_sequence']
     states, got = ssd_update.ssd_sequence(
         state[None].clone(), consts[None].clone(), r1, r2,
         [0, r1.numel()], *trips, k_w)
     torch.cuda.synchronize()
-    assert ssd_update.ssd_sequence.launches == before + 1
+    assert kernels.launches['ssd_sequence'] == before + 1
     assert torch.isfinite(got).all()
     assert torch.equal(got, want)
     assert torch.equal(states[0], by_window)
@@ -815,12 +816,12 @@ def test_attention_sequences_on_card_match_successive_calls(cuda):
     by_call, by_sequence = decoders(), decoders()
     want = [[dec.attention(a, b) for a, b in zip(r1, r2)]
             for dec, r1, r2 in zip(by_call, r1s, r2s)]
-    windows = ssd_update.ssd_update.launches
-    sequences = ssd_update.ssd_sequence.launches
+    windows = kernels.launches['ssd_update']
+    sequences = kernels.launches['ssd_sequence']
     got = attention_decoder.StateSpaceAttentionDecoder.attention_sequences(
         by_sequence, r1s, r2s)
-    assert ssd_update.ssd_update.launches == windows
-    assert ssd_update.ssd_sequence.launches == sequences + 1
+    assert kernels.launches['ssd_update'] == windows
+    assert kernels.launches['ssd_sequence'] == sequences + 1
     assert got == want
     for a, b in zip(by_call, by_sequence):
         assert (a.calls, a.z_dyn, a.eta_dyn) == (b.calls, b.z_dyn, b.eta_dyn)
@@ -854,9 +855,9 @@ def test_infer_pair_async_on_card_matches_infer_pair(cuda):
                       reduction='lda', device=cuda)
     card.model_params = cpu.model_params
     args = (x1[:32], x2[:32], x2[32:64], out[:32], out[:32])
-    before = decode_kernel.fused_cca_decode.launches
+    before = kernels.launches['fused_cca_decode']
     pending = card.infer_pair_async(*args)
-    assert decode_kernel.fused_cca_decode.launches == before + 1
+    assert kernels.launches['fused_cca_decode'] == before + 1
     want = card.infer_pair(*args)
     got_a, got_b = (np.asarray(p) for p in pending)
     np.testing.assert_array_equal(got_a, want[0])
@@ -881,10 +882,10 @@ def test_fused_cca_decode_op_matches_plain(cuda, f1, f2, d, pair):
     folded = _folded(cuda, rng, f1, f2, d)
     x1, x2a, x2b = _f32_windows(cuda, f1, 32, 1, f1, f2)
     (rot1, rot2, consts), dims = _operands(folded)
-    before = decode_kernel.fused_cca_decode.launches
+    before = kernels.launches['fused_cca_decode']
     got = torch.ops.tdt.fused_cca_decode_f32(x1, x2a, x2b if pair else None,
                                              rot1, rot2, consts, dims)
-    assert decode_kernel.fused_cca_decode.launches == before + 1
+    assert kernels.launches['fused_cca_decode'] == before + 1
     want = torch.stack([decode_kernel.fused_cca_decode_reference(
         folded, x1, s) for s in (x2a, x2b)])
     torch.testing.assert_close(got, want if pair else want[0], **F32_TOL)
@@ -951,9 +952,9 @@ def test_artifact_on_card_equals_live_decoder(cuda, tmp_path, export_on):
     for frames in (1, 32, 77):
         args = (x1[:frames], x2[:frames], x2[100:100 + frames],
                 out[:frames], out[:frames])
-        before = decode_kernel.fused_cca_decode.launches
+        before = kernels.launches['fused_cca_decode']
         got = exported.infer_pair(*args)
-        assert decode_kernel.fused_cca_decode.launches == before + 1
+        assert kernels.launches['fused_cca_decode'] == before + 1
         want = live.infer_pair(*args)
         for g, w in zip(got, want):
             if export_on == 'cuda':
@@ -1020,7 +1021,7 @@ def _plan_counts():
     the counters count inside a profiler."""
     from telluride_decoding_torch.utils import profiling
     counters = profiling.recorded().counters
-    return (decode_kernel.fused_cca_decode.launches,
+    return (kernels.launches['fused_cca_decode'],
             counters.get(profiling.GRAPH_REPLAYS, 0),
             counters.get(profiling.GRAPH_CAPTURES, 0),
             counters.get(profiling.HOST_WAITS, 0))
@@ -1072,7 +1073,7 @@ def test_push_plan_scores_equal_todays_path(cuda, profiled, f1, f2, dims,
 @pytest.mark.parametrize('refit', ['model', 'lda'])
 def test_push_plan_after_a_refit_mid_stream(cuda, profiled, refit):
     """A refit (the model's params_version, or new statistics and LDA)
-    gives new operands, so a new key: its first push takes the path
+    builds a new pipeline, so a new key: its first push takes the path
     without a plan, its second captures, and the scores are the new
     parameters' bits. infer_pair_async keeps the path without a plan."""
     f1, f2, dims, rows = PLAN_WIDTHS[1]
@@ -1109,8 +1110,8 @@ def test_push_plan_after_a_refit_mid_stream(cuda, profiled, refit):
 def test_push_plan_outlives_an_eviction_of_its_operands(cuda, profiled):
     """prepared_operands' LRU drops the operands a live graph reads: the
     plan holds them, so a replay after the allocator has handed out
-    fresh memory still reads them; the decoder's next pushes make new
-    operands, a new key, and the same scores."""
+    fresh memory still reads them; the decoder's next pushes keep their
+    key (its pipeline) and replay the plan, with the same scores."""
     import gc
     import weakref
     f1, f2, dims, rows = PLAN_WIDTHS[0]
@@ -1118,23 +1119,25 @@ def test_push_plan_outlives_an_eviction_of_its_operands(cuda, profiled):
     rng = np.random.RandomState(3)
     for _ in range(3):
         _counted_push(decoder, _push_args(rng, rows, f1, f2))
-    ((operands, plan),) = decoder._push_plans._plans.values()
-    held = weakref.ref(operands.rot1)
-    del operands
+    (plan,) = decoder._push_plans._plans.values()
+    # The operands the capture's launch took, still in the LRU.
+    held = [weakref.ref(t) for t in decode_kernel.prepared_operands(
+        decoder._pipeline.folded, torch.float32)[:3]]
     decode_kernel._prepared.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    assert held() is not None
-    junk = [torch.full_like(t, float('nan'))
-            for t in plan._operands[:3] for _ in range(4)]
+    assert all(r() is not None for r in held)
+    junk = [torch.full_like(r(), float('nan')) for r in held
+            for _ in range(4)]
     args = _push_args(rng, rows, f1, f2)
-    _assert_same_bits(plan.run(*args[:3]), _todays_scores(decoder, args))
+    _assert_same_bits(plan.run(args[:3]), _todays_scores(decoder, args))
     for push in range(3):
         args = _push_args(rng, rows, f1, f2)
         want = _todays_scores(decoder, args)
         got, counts = _counted_push(decoder, args)
         _assert_same_bits(got, want)
-        assert counts[1:3] == [(0, 0), (1, 1), (1, 0)][push]
+        assert counts[1:3] == (1, 0), push
+    assert len(decoder._push_plans) == 1
     del junk
 
 
@@ -1236,20 +1239,19 @@ def _raw_windows(rng, rows, channels, pre, post, pre2, post2):
 
 def _device_stacks():
     from telluride_decoding_torch.utils import profiling
-    return (lagstack.lag_stack.launches,
+    return (kernels.launches['lag_stack'],
             profiling.recorded().counters.get(profiling.DEVICE_STACKS, 0))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('widths', sorted(RAW_PLANS))
 def test_push_plan_raw_windows_equal_host_stacks(cuda, profiled, widths):
-    """Pushes of raw windows: the plan stacks them on the card (K2, one
-    launch a window, inside the graph) and gives the bits of the host
-    stacks on the path without a plan. As for stacked rows, the two
-    first sights take that path (five host waits, nothing stacked on the
-    card), the second full push captures, every push after replays with
-    one wait; each replay counts three K2 launches, one device stack and
-    one graph replay, the capture none."""
+    """Pushes of raw windows: every route stacks them on the card (K2,
+    one launch a window; inside the graph on a plan) and gives the bits
+    of the host stacks. As for stacked rows, the two first sights take
+    the path without a plan (five host waits), the second full push
+    captures, every push after replays with one wait; each push counts
+    three K2 launches and one device stack, the capture none."""
     channels, pre, post, pre2, post2, dims, rows, hidden = RAW_PLANS[widths]
     f1, f2 = channels * (pre + 1 + post), pre2 + 1 + post2
     if hidden is None:
@@ -1267,9 +1269,9 @@ def test_push_plan_raw_windows_equal_host_stacks(cuda, profiled, widths):
         assert counts == {0: (1, 0, 0, 5), 1: (1, 0, 0, 5),
                           2: (1, 1, 1, 1)}.get(push, (1, 1, 0, 1)), push
         assert tuple(b - a for a, b in zip(stacks, _device_stacks())) == (
-            (0, 0) if push < 2 else (3, 1)), push
-    ((key, _),) = decoder._push_plans._plans.items()
-    assert key[4] == ((channels, pre, post), (1, pre2, post2))
+            3, 1), push
+    (key,) = decoder._push_plans._plans
+    assert key[2] == ((pre, post), (pre2, post2), (pre2, post2))
     # The same decoder's stacked rows take a plan of their own.
     args = _raw_windows(rng, rows, channels, pre, post, pre2, post2)
     stacked = [np.asarray(a) for a in args]

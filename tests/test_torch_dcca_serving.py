@@ -8,7 +8,8 @@ The plan itself (a CUDA graph) runs on the card only
 (tests/test_torch_cuda.py, ``-k push_plan_dcca``). Here a decoder built
 on the CPU and then named a CUDA one (its pipeline already built) shows
 which key it gets, and a stand-in plan shows what the decoder hands a
-plan: its widths, K1's parameters and the towers.
+plan: the frames' shapes and the function it captures, which holds the
+towers and K1's parameters.
 
 Tolerance of the window means: 2e-6 of the reference's RMS. The port
 computes in float32 (towers of at most 40 inputs, then K1's sums of 4
@@ -29,7 +30,6 @@ from telluride_decoding_torch.decode import push_plan
 from telluride_decoding_torch.decode.infer_decoder import (
     CCADecoder, CorrelationParamsTuple, ModelParamsTuple)
 from telluride_decoding_torch.models.cca import BrainModelCCA, BrainModelDCCA
-from telluride_decoding_torch.ops import decode_kernel
 from telluride_decoding_torch.solvers.lda import LdaParams
 from telluride_decoding_torch.utils import profiling
 
@@ -163,8 +163,8 @@ def test_plain_reference_fails_without_a_relu(monkeypatch):
 
 def on_card(decoder):
     """The decoder with its CPU pipeline built, then named a CUDA one."""
-    decoder._invalidate_stale_pipelines()
-    decoder._pipeline = decoder._build_pipeline()
+    decoder._pipeline = None
+    decoder._current_pipeline()
     decoder._device = torch.device('cuda', 0)
     return decoder
 
@@ -182,10 +182,11 @@ def test_dcca_plan_key_and_a_new_one_after_a_refit(refit):
     input widths; a refit of the model or new statistics and LDA give
     another key."""
     decoder = on_card(dcca_decoder(seeded_weights(0)))
-    key, operands, folded = decoder._plan_key(*pair())
-    assert folded is decoder._pipeline.folded
-    assert folded.rot1.shape == (DIMS, DIMS)
-    assert key == (32, F1, F2, operands.pointers, ((F1, 0, 0), (F2, 0, 0)))
+    key = decoder._plan_key(*pair())
+    pipeline = decoder._pipeline
+    assert pipeline.folded.rot1.shape == (DIMS, DIMS)
+    assert pipeline.towers is not None
+    assert key == (pipeline, 32, ((0, 0),) * 3)
     fresh = seeded_weights(5)
     decoder._device = torch.device('cpu')
     if refit == 'model':
@@ -195,35 +196,32 @@ def test_dcca_plan_key_and_a_new_one_after_a_refit(refit):
     else:
         decoder.model_params = model_params(fresh)
     on_card(decoder)
-    again, _, _ = decoder._plan_key(*pair())
-    assert again[:3] == key[:3] and again != key
+    again = decoder._plan_key(*pair())
+    assert again[1:] == key[1:] and again[0] is not key[0]
 
 
 class StandInPlan:
-    """What the decoder hands a plan: scores from the towers it was
-    given and K1's plain path on the CPU."""
+    """What the decoder hands a plan: the function it captures, run here
+    on CPU tensors of the staged frames, at capture and at each push."""
 
     made = []
 
-    def __init__(self, folded, operands, rows, f1, f2, device, towers,
-                 windows):
-        self.shape = (rows, f1, f2)
-        self.folded, self.towers = folded, towers
+    def __init__(self, run, frame_shapes, rows, device):
+        self.shape = (list(frame_shapes), rows)
+        self.captured = run
+        run([torch.zeros(shape) for shape in frame_shapes])
         StandInPlan.made.append(self)
 
-    def run(self, x1, x2a, x2b):
-        h1, (h2a, h2b) = self.towers(
-            torch.from_numpy(x1), [torch.from_numpy(x2a),
-                                   torch.from_numpy(x2b)])
-        scores = decode_kernel.fused_cca_decode(
-            self.folded, h1[:, None], h2a[:, None], h2b[:, None])
+    def run(self, frames):
+        scores = self.captured([torch.from_numpy(f) for f in frames])
         return scores[0].numpy(), scores[1].numpy()
 
 
 def test_dcca_plan_gets_the_towers_of_its_key(monkeypatch):
     """The plan captured on a key's second sight gets the decoder's
-    towers and K1's parameters: its scores are the CPU path's, bit for
-    bit. Its towers keep the weights of its key after a refit."""
+    composition with the towers and K1's parameters: its scores are the
+    CPU path's, bit for bit. Its towers keep the weights of its key
+    after a refit."""
     weights = seeded_weights(0)
     x1, x2a, x2b = pair()
     blank = np.zeros((32, 1), np.float32)
@@ -231,22 +229,23 @@ def test_dcca_plan_gets_the_towers_of_its_key(monkeypatch):
     decoder = on_card(dcca_decoder(weights))
     monkeypatch.setattr(push_plan, 'PushPlan', StandInPlan)
     StandInPlan.made = []
-    decoder._push_plans.saw(decoder._plan_key(x1, x2a, x2b)[0])
+    decoder._push_plans.saw(decoder._plan_key(x1, x2a, x2b))
     with profile(activities=[ProfilerActivity.CPU]):
         got = decoder.infer_pair(x1, x2a, x2b, blank, blank)
     (plan,) = StandInPlan.made
-    assert plan.shape == (32, F1, F2)
+    assert plan.shape == ([(32, F1), (32, F2), (32, F2)], 32)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
-    # A plan's replay counts the three tower passes its graph runs; the
-    # decoder runs no eager towers beside it.
-    assert profiling.TOWER_PASSES not in profiling.recorded().counters
-    before = plan.towers(torch.from_numpy(x1), [])[0]
+    # The plan ran the towers at capture and at the push; the decoder
+    # counts the three passes the push served, once.
+    assert profiling.recorded().counters[profiling.TOWER_PASSES] == 3
+    frames = [torch.from_numpy(x) for x in (x1, x2a, x2b)]
+    before = plan.captured(frames)
     decoder.decoding_model.set_params({
         k: torch.as_tensor(v) * 2 for k, v in
         decoder.decoding_model.params.items()})
-    torch.testing.assert_close(plan.towers(torch.from_numpy(x1), [])[0],
-                               before, rtol=0, atol=0)
+    torch.testing.assert_close(plan.captured(frames), before, rtol=0,
+                               atol=0)
 
 
 @pytest.mark.parametrize('kind,call,passes', [

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from telluride_decoding_tpu.ops import decode_kernel as jax_decode
+from telluride_decoding_torch import kernels
 from telluride_decoding_torch.ops import decode_kernel
 
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -100,7 +101,7 @@ def test_wrapper_rejects_non_cuda_devices(rng):
     x2 = torch.zeros((2, 1, 31), device='meta')
     with pytest.raises(ValueError):
         decode_kernel.fused_cca_decode(folded, x1, x2)
-    assert decode_kernel.fused_cca_decode.launches == 0
+    assert kernels.launches['fused_cca_decode'] == 0
 
 
 

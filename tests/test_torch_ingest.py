@@ -22,11 +22,10 @@ import torch
 from telluride_decoding_tpu.cli import regression_data as jax_rd
 from telluride_decoding_tpu.data import records as jax_records
 from telluride_decoding_tpu.io import ingest as jax_ingest
+from telluride_decoding_torch import kernels
 from telluride_decoding_torch.cli import regression_data
 from telluride_decoding_torch.data import records
 from telluride_decoding_torch.io import ingest
-from telluride_decoding_torch.ops.fused_frontend import (
-    fused_envelope_lagstack)
 
 FIELD_TOL = 1e-5
 
@@ -94,9 +93,10 @@ def test_kuleuven_ingest_matches_jax(rng, tmp_path):
     kuleuven_cache(rng, cache)
     jax_rd.RegressionDataKULeuven().ingest_data(cache, str(tmp_path / 'jax'),
                                                 32)
-    launches = fused_envelope_lagstack.launches
+    launches = kernels.launches['fused_envelope_lagstack']
     assert port_main('kuleuven', cache, str(tmp_path / 'port'), 32) == 0
-    assert fused_envelope_lagstack.launches == launches   # CPU: cumsum.
+    # CPU: cumsum.
+    assert kernels.launches['fused_envelope_lagstack'] == launches
     files = assert_same_files(str(tmp_path / 'port'), str(tmp_path / 'jax'))
     assert len(files) == 32 and 'S1/S1_T0.tfrecords' in files
     data = records.read_tfrecords(str(tmp_path / 'port' / 'S1' /

@@ -1,12 +1,15 @@
 """The decoder's resident push plans (decode/push_plan.py) on the CPU:
-which calls take a plan, and the plans' LRU. The plans themselves run
-on the card only (tests/test_torch_cuda.py, ``-k push_plan``).
+which calls take a plan, the plans' LRU, and the function a plan
+captures. The graphs themselves run on the card only
+(tests/test_torch_cuda.py, ``-k push_plan``).
 
 A decoder built on the CPU and then pointed at a CUDA device (its
 pipeline already built, so nothing is moved) shows the selection rule
 without a card: only a CCA or deep CCA model with the LDA reduction and
-numpy inputs of the model's widths get a plan key (a deep CCA's plan
-runs its towers too: tests/test_torch_dcca_serving.py).
+numpy inputs or raw windows of the model's widths get a plan key (a
+deep CCA's plan runs its towers too: tests/test_torch_dcca_serving.py).
+A stand-in plan takes what the decoder hands a plan: the function it
+captures runs here on CPU tensors of the frames a plan stages.
 """
 
 import gc
@@ -32,6 +35,8 @@ from telluride_decoding_torch.utils import profiling
 F1, F2, DIMS, ROWS = 12, 3, 3, 8
 # Raw windows of those widths: (C, pre, post) of the EEG and the audio.
 LAGS = ((3, 0, 3), (1, 1, 1))
+# Their plan key's lags: each stream's (pre, post).
+KEY_LAGS = ((0, 3), (1, 1), (1, 1))
 GRAPH_COUNTERS = (profiling.GRAPH_REPLAYS, profiling.GRAPH_CAPTURES)
 
 
@@ -104,31 +109,29 @@ def windows(rows=ROWS, seed=1, lags=LAGS):
 
 def on_card(decoder):
     """The decoder with its CPU pipeline built, then named a CUDA one."""
-    decoder._invalidate_stale_pipelines()
-    decoder._pipeline = decoder._build_pipeline()
+    decoder._pipeline = None
+    decoder._current_pipeline()
     decoder._device = torch.device('cuda', 0)
     return decoder
 
 
 def test_plan_key_of_a_cca_decoder_with_lda_and_host_arrays():
     decoder = on_card(make_decoder('cca'))
-    key, operands, folded = decoder._plan_key(*inputs()[:3])
-    assert folded is decoder._pipeline.folded
-    assert operands is decode_kernel.prepared_operands(folded, torch.float32)
-    # Host arrays are windows with no context.
-    assert key == (ROWS, F1, F2, operands.pointers, ((F1, 0, 0), (F2, 0, 0)))
+    key = decoder._plan_key(*inputs()[:3])
+    # The pipeline, no operand addresses; host arrays are windows with
+    # no context.
+    assert key == (decoder._pipeline, ROWS, ((0, 0),) * 3)
 
 
 def test_plan_key_of_raw_windows():
-    """LagRows get a key of their own: the stacked widths' key with the
-    windows' (C, pre, post)."""
+    """LagRows get a key of their own: the stacked rows' key with the
+    windows' (pre, post)."""
     decoder = on_card(make_decoder('cca'))
-    key, operands, folded = decoder._plan_key(*windows()[:3])
-    assert folded is decoder._pipeline.folded
-    assert key == (ROWS, F1, F2, operands.pointers, LAGS)
+    key = decoder._plan_key(*windows()[:3])
+    assert key == (decoder._pipeline, ROWS, KEY_LAGS)
     stacked = [np.asarray(w) for w in windows()[:3]]
-    assert decoder._plan_key(*stacked)[0][:4] == key[:4]
-    assert decoder._plan_key(*stacked)[0] != key
+    assert decoder._plan_key(*stacked)[:2] == key[:2]
+    assert decoder._plan_key(*stacked) != key
 
 
 @pytest.mark.parametrize('case', [
@@ -183,8 +186,9 @@ def test_cpu_decoders_serve_as_before_and_count_nothing(kind):
 
 @pytest.mark.parametrize('kind', ['cca', 'linear', 'dcca'])
 def test_raw_windows_off_the_plan_stack_on_the_host(kind):
-    """Off the plan (here the CPU), raw windows are stacked on the host:
-    the scores of their stacked rows, bit for bit, synchronous or not."""
+    """Off the plan (here the CPU), raw windows are stacked where the
+    decoder uses them: the scores of their host-stacked rows, bit for
+    bit, synchronous or not."""
     decoder = make_decoder(kind)
     raw = windows()
     stacked = [np.asarray(a) for a in raw]
@@ -195,30 +199,76 @@ def test_raw_windows_off_the_plan_stack_on_the_host(kind):
 
 
 class StandIn:
-    """A stand-in plan: what the decoder hands a raw-window plan."""
+    """A stand-in plan: what the decoder hands a plan, and what it runs."""
 
-    def __init__(self, folded, operands, rows, f1, f2, device, towers,
-                 lags=None):
-        self.made = (rows, f1, f2, lags)
+    def __init__(self, run, frame_shapes, rows, device):
+        self.captured = run
+        self.made = (list(frame_shapes), rows)
         self.ran = []
 
-    def run(self, *args):
-        self.ran.append(args)
+    def run(self, frames):
+        self.ran.append(frames)
         return np.zeros(ROWS, np.float32), np.ones(ROWS, np.float32)
+
+
+def stand_in_plans(monkeypatch):
+    """The plans the decoder makes from here on, stand-ins."""
+    made = []
+    monkeypatch.setattr(push_plan, 'PushPlan',
+                        lambda *a: made.append(StandIn(*a)) or made[-1])
+    return made
 
 
 def test_raw_window_plan_gets_the_windows_and_their_frames(monkeypatch):
     decoder = on_card(make_decoder('cca'))
-    made = []
-    monkeypatch.setattr(push_plan, 'PushPlan',
-                        lambda *a: made.append(StandIn(*a)) or made[-1])
+    made = stand_in_plans(monkeypatch)
     raw = windows()
-    decoder._push_plans.saw(decoder._plan_key(*raw[:3])[0])
+    decoder._push_plans.saw(decoder._plan_key(*raw[:3]))
     got = decoder.infer_pair(*raw)
     (plan,) = made
-    assert plan.made == (ROWS, F1, F2, LAGS)
-    assert [a is b for a, b in zip(plan.ran[0], raw)] == [True] * 3
+    assert plan.made == ([w.frames.shape for w in raw[:3]], ROWS)
+    assert [a is b.frames for a, b in zip(plan.ran[0], raw)] == [True] * 3
     assert got[1][0] == 1.0
+
+
+@pytest.mark.parametrize('kind', ['cca', 'dcca'])
+@pytest.mark.parametrize('form', ['raw_windows', 'host_arrays'])
+def test_the_plans_function_gives_the_eager_scores(monkeypatch, kind, form):
+    """The function the decoder hands a plan, run on CPU tensors of the
+    frames the plan stages, gives eager infer_pair's scores bit for bit:
+    a plan captures the composition the path without a plan runs."""
+    decoder = make_decoder(kind)
+    args = windows() if form == 'raw_windows' else inputs()
+    want = decoder.infer_pair(*args)
+    on_card(decoder)
+    made = stand_in_plans(monkeypatch)
+    decoder._push_plans.saw(decoder._plan_key(*args[:3]))
+    decoder.infer_pair(*args)
+    (plan,) = made
+    frames = [torch.from_numpy(getattr(a, 'frames', a)) for a in args[:3]]
+    assert plan.made == ([tuple(f.shape) for f in frames], ROWS)
+    scores = plan.captured(frames)
+    assert scores.shape == (2, ROWS)
+    for g, w in zip(scores, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_a_dropped_decoder_frees_its_plans_at_once(monkeypatch):
+    """A plan holds its decoder weakly: dropping the decoder frees its
+    plans without the cyclic collector, which could run inside another
+    decoder's capture and break it by freeing a graph or pinned memory."""
+    decoder = on_card(make_decoder('dcca'))
+    made = stand_in_plans(monkeypatch)
+    args = windows()
+    decoder._push_plans.saw(decoder._plan_key(*args[:3]))
+    decoder.infer_pair(*args)
+    plan = weakref.ref(made.pop())
+    gc.disable()
+    try:
+        del decoder
+        assert plan() is None
+    finally:
+        gc.enable()
 
 
 class FakePlan:
@@ -229,56 +279,53 @@ class FakePlan:
         self.key = key
 
 
-def _operands(seed):
-    rng = np.random.RandomState(seed)
-
-    def randn(*shape):
-        return torch.as_tensor(rng.randn(*shape), dtype=torch.float32)
-    return decode_kernel.prepared_operands(decode_kernel.fold_decode_params({
-        'mean1': randn(1, F1), 'mean2': randn(1, F2),
-        'rot1': randn(F1, DIMS), 'rot2': randn(F2, DIMS),
-        'corr_mean_x': torch.zeros(DIMS), 'corr_mean_y': torch.zeros(DIMS),
-        'corr_power': torch.ones(DIMS), 'lda_w': randn(DIMS, 1),
-        'lda_slope': 1.0, 'lda_intercept': 0.0}), torch.float32)
-
-
 def test_plans_are_captured_on_a_keys_second_sight():
     plans = push_plan.PushPlans()
     FakePlan.captured = 0
-    ops = _operands(0)
-    key = (ROWS, F1, F2, ops.pointers)
-    assert plans.plan(key, ops, lambda: FakePlan(key)) is None
+    key = ('pipeline', ROWS, KEY_LAGS)
+    assert plans.plan(key, lambda: FakePlan(key)) is None
     assert FakePlan.captured == 0
     plans.saw(key)
-    plan = plans.plan(key, ops, lambda: FakePlan(key))
+    plan = plans.plan(key, lambda: FakePlan(key))
     assert plan.key == key and FakePlan.captured == 1
     for _ in range(3):
-        assert plans.plan(key, ops, lambda: FakePlan(key)) is plan
+        assert plans.plan(key, lambda: FakePlan(key)) is plan
     assert FakePlan.captured == 1
     # A key seen long ago is forgotten: its next sight is a first one.
-    other = (ROWS - 1,) + key[1:]
+    other = key[:1] + (ROWS - 1,) + key[2:]
     plans.saw(other)
     for rows in range(plans.SEEN_SIZE):
-        plans.saw((100 + rows,) + key[1:])
-    assert plans.plan(other, ops, lambda: FakePlan(other)) is None
+        plans.saw(key[:1] + (100 + rows,) + key[2:])
+    assert plans.plan(other, lambda: FakePlan(other)) is None
 
 
-def test_plan_lru_keeps_four_and_holds_their_operands():
-    plans = push_plan.PushPlans()
-    decode_kernel._prepared.clear()
+def test_plan_lru_keeps_four_and_holds_their_operands(monkeypatch):
+    """A plan holds what its graph reads: its pipeline and K1's operands
+    as its capture took them, after prepared_operands' LRU has dropped
+    them. The decoder keeps four plans; an evicted one frees both."""
+    decoder = make_decoder('cca')
+    monkeypatch.setattr(push_plan, 'PushPlan', StandIn)
+    rng = np.random.RandomState(2)
     refs = []
-    for seed in range(plans.SIZE + 2):
-        ops = _operands(seed)
-        key = (ROWS, F1, F2, ops.pointers)
-        plans.saw(key)
-        assert plans.plan(key, ops, lambda: FakePlan(key)) is not None
-        refs.append(weakref.ref(ops.rot1))
-        del ops
-        # Evicted from prepared_operands' LRU: only the plan holds them.
+    for refit in range(push_plan.PushPlans.SIZE + 2):
+        # New statistics and LDA: a new pipeline, so a new key.
+        decoder._device = torch.device('cpu')
+        on_card(_lda_params(decoder, rng, DIMS))
+        args = inputs(seed=refit)
+        decoder._push_plans.saw(decoder._plan_key(*args[:3]))
+        decoder.infer_pair(*args)
+        folded = decoder._pipeline.folded
+        refs.append((weakref.ref(decode_kernel.prepared_operands(
+            folded, torch.float32).rot1), weakref.ref(folded.scale)))
+        del folded
+        decoder._pipeline = None
         decode_kernel._prepared.clear()
         gc.collect()
-        assert refs[-1]() is not None
-        assert len(plans) == min(seed + 1, plans.SIZE)
+        assert all(r() is not None for r in refs[-1])
+        assert len(decoder._push_plans) == min(refit + 1,
+                                               push_plan.PushPlans.SIZE)
     gc.collect()
-    alive = [r() is not None for r in refs]
-    assert alive == [False, False] + [True] * plans.SIZE
+    alive = [[r() is not None for r in pair] for pair in refs]
+    assert alive == [[False] * 2] * 2 + [[True] * 2] * 4
+
+

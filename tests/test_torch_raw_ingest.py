@@ -23,13 +23,12 @@ import chip_smoke
 from telluride_decoding_tpu.data import records as jax_records
 from telluride_decoding_tpu.io import ingest as jax_ingest
 from telluride_decoding_tpu.signal import preprocess as jax_preprocess
+from telluride_decoding_torch import kernels
 from telluride_decoding_torch.cli import decoding
 from telluride_decoding_torch.data import records
 from telluride_decoding_torch.data.brain_data import TFExampleData
 from telluride_decoding_torch.decode.infer_decoder import create_decoder
 from telluride_decoding_torch.io import ingest
-from telluride_decoding_torch.ops.fused_frontend import (
-    fused_envelope_lagstack)
 from telluride_decoding_torch.signal import preprocess
 from tools import raw_recordings
 
@@ -54,11 +53,12 @@ def lab(tmp_path_factory):
 def test_lab_ingest_matches_jax(lab, tmp_path):
     root, planted, names, onsets = lab
     eeg_fs = SMALL_LAB['eeg_fs']
-    launches = fused_envelope_lagstack.launches
+    launches = kernels.launches['fused_envelope_lagstack']
     got, stages, files = raw_recordings.lab_ingest(
         ingest, preprocess, root, str(tmp_path / 'port'), names, RATE,
         eeg_fs, device='cpu')
-    assert fused_envelope_lagstack.launches == launches   # CPU: cumsum.
+    # CPU: cumsum.
+    assert kernels.launches['fused_envelope_lagstack'] == launches
     want, _, jax_files = raw_recordings.lab_ingest(
         jax_ingest, jax_preprocess, root, str(tmp_path / 'jax'), names,
         RATE, eeg_fs)

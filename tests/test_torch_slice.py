@@ -44,11 +44,8 @@ from test_torch_infer_decoder import (jax_model_dir, port_model_dir,
                                       recordings)
 
 import chip_smoke
+from telluride_decoding_torch import kernels
 from telluride_decoding_torch.cli import serve
-from telluride_decoding_torch.ops.decode_kernel import fused_cca_decode
-from telluride_decoding_torch.ops.fused_frontend import (
-    fused_envelope_lagstack)
-from telluride_decoding_torch.ops.lagstack import lag_stack
 
 SLICE_TOL = 1e-3
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -139,10 +136,10 @@ def _jax_ingest_slice(tmp_path, held_out):
 def test_ingest_slice_matches_jax(tmp_path):
     """Raw recordings -> TFRecords -> fit -> train -> serve, in both
     packages on the CPU: the same decisions, scores within 1e-3."""
-    launches = fused_envelope_lagstack.launches
+    launches = kernels.launches['fused_envelope_lagstack']
     got, summary, stream, times, _, _ = chip_smoke.run_ingest_slice(
         'cpu', str(tmp_path), **SMALL_KULEUVEN)
-    assert fused_envelope_lagstack.launches == launches
+    assert kernels.launches['fused_envelope_lagstack'] == launches
     assert times['files'] == SMALL_KULEUVEN['trials']
     assert times['ingest_err'] == 0.0         # Both ingests on the CPU.
     assert chip_smoke.check_decisions(got, summary, stream[0].shape[0],
@@ -159,7 +156,7 @@ def test_ingest_slice_matches_jax(tmp_path):
 def test_chip_smoke_slice_runs_on_cpu(tmp_path):
     """chip_smoke's codelab phase at a small size with the plain
     versions: CPU tensors never launch a kernel."""
-    launches = (lag_stack.launches, fused_cca_decode.launches)
+    launches = kernels.launches.copy()
     contexts = (0, 4, 2, 2)
     decisions, summary, stream, _ = chip_smoke.run_slice(
         'cpu', str(tmp_path), channels=12, files=2, frames=3000,
@@ -167,7 +164,7 @@ def test_chip_smoke_slice_runs_on_cpu(tmp_path):
     assert chip_smoke.check_decisions(decisions, summary, 3000) > 0.9
     assert chip_smoke.check_against_plain(decisions, str(tmp_path), stream,
                                           contexts) <= chip_smoke.SERVE_TOL
-    assert (lag_stack.launches, fused_cca_decode.launches) == launches
+    assert kernels.launches == launches
 
 
 def test_chip_smoke_fails_without_card_and_alone():

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from telluride_decoding_tpu.decide import attention_decoder as jax_ad
+from telluride_decoding_torch import kernels
 from telluride_decoding_torch.decide import attention_decoder as ad
 from telluride_decoding_torch.ops import ssd_update as ops
 
@@ -98,12 +99,12 @@ def test_sequence_reference_equals_the_window_loop(at):
 
 def test_sequence_takes_the_plain_version_on_the_cpu():
     state, consts, r1, r2 = stream(2, K_W + 1)
-    before = ops.ssd_sequence.launches
+    before = kernels.launches['ssd_sequence']
     got = ops.ssd_sequence(state[None], consts[None], r1, r2, [0, K_W + 1],
                            *TRIPS, K_W)
     want = ops.ssd_sequence_reference(state[None], consts[None], r1, r2,
                                       [0, K_W + 1], *TRIPS, K_W)
-    assert ops.ssd_sequence.launches == before
+    assert kernels.launches['ssd_sequence'] == before
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert not torch.equal(got[0], state[None])    # a new state
 
