@@ -217,6 +217,9 @@ HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, data sheet.
 FP32_FLOPS = 67e12                             # fp32 on the CUDA cores, same.
 SERVE_ROWS = 32                                # Frames in a served chunk.
 F32_SYMBOL = 'fused_cca_decode_cluster_kernel'  # K1's float32 kernel.
+T1_SYMBOL = 'dcca_towers_kernel'               # T1, the deep CCA's towers.
+T1_TOL = dict(rtol=1e-5, atol=1e-5)            # T1 vs plain: sums reordered.
+T1_HIDDEN = [128, 64]                          # The codelab DCCA's towers.
 # Phase 11: the state-space decoder (kernel S1) and the infer sweep. The
 # infer corpus: train files attending speaker 1, a test file whose
 # attention switches every INFER_SEGMENT frames (three switches).
@@ -850,6 +853,137 @@ def phase_decode(torch, device):
     return result
 
 
+def tower_weights(torch, f1, f2, hidden, dims, device, seed):
+    """TowerWeights of seeded towers (weights N(0, 2 / fan_in), biases
+    N(0, 0.01)) on ``device``, and the layers as the model names them."""
+    from telluride_decoding_torch.ops import dcca_towers
+    rng = np.random.RandomState(seed)
+    params, towers = {}, []
+    for index, width in ((1, f1), (2, f2)):
+        widths = [width] + hidden + [dims]
+        layers = []
+        for i in range(len(widths) - 1):
+            w = torch.as_tensor(rng.randn(widths[i], widths[i + 1]) *
+                                np.sqrt(2.0 / widths[i]), dtype=torch.float32,
+                                device=device)
+            b = torch.as_tensor(0.1 * rng.randn(widths[i + 1]),
+                                dtype=torch.float32, device=device)
+            params['tower%d/%d/w' % (index, i)] = w
+            params['tower%d/%d/b' % (index, i)] = b
+            layers.append((w, b))
+        towers.append(layers)
+    return dcca_towers.TowerWeights(*towers), params
+
+
+def tower_bound(rows, f1, f2, hidden, dims):
+    """(ms, 'bytes' or 'operations') of a served pair's three tower
+    passes by the plain algorithm: each pass's weights and biases read
+    once, its rows read and each layer's output written once; a
+    multiply-add two operations, a bias add and a ReLU one each."""
+    num_bytes = flops = 0
+    for width, passes in ((f1, 1), (f2, 2)):
+        sizes = [width] + hidden + [dims]
+        layers = list(zip(sizes[:-1], sizes[1:]))
+        num_bytes += passes * 4 * (sum(i * o + o for i, o in layers) +
+                                   rows * sum(sizes))
+        flops += passes * rows * (sum(2 * i * o + o for i, o in layers) +
+                                  sum(hidden))
+    return bound(num_bytes, flops)
+
+
+def phase_towers(torch, device):
+    """T1 (the deep CCA's towers in one launch) against its plain version
+    at the served shapes: codelab widths (2553 and 31 inputs, hidden
+    128-64), D 10 and 5, 1 to 64 rows a stream, one and two audio streams,
+    and at 1000 inputs (chunks that end inside a quad of inputs); a
+    second call gives the same bits. At the served pair (32 rows, two
+    streams, D 10): the call's time (CUDA events), its host time, T1's
+    device time, the plain version's time (the same products, bias adds
+    and ReLUs in torch: cuBLAS float32), the model's own towers as the
+    port served them before T1 (library_ms, and their device time), and
+    the bound."""
+    from telluride_decoding_torch import kernels
+    from telluride_decoding_torch.models.brain_model import _apply_mlp
+    from telluride_decoding_torch.ops import dcca_towers
+    f1 = IN1_CHANNELS * (PRE + 1 + POST)
+    f2 = IN2_PRE + 1 + IN2_POST
+    gen = torch.Generator(device=device).manual_seed(24)
+    worst = 0.0
+    for width, dims in ((f1, CCA_DIMS), (f1, KULEUVEN['dims']),
+                        (1000, CCA_DIMS)):
+        weights, _ = tower_weights(torch, width, f2, T1_HIDDEN, dims, device,
+                                   seed=dims)
+        for rows in (1, 16, 29, SERVE_ROWS, dcca_towers.MAX_ROWS):
+            x1 = torch.randn((rows, width), generator=gen, device=device)
+            x2s = [torch.randn((rows, f2), generator=gen, device=device)
+                   for _ in range(2)]
+            for streams in (1, 2):
+                got = dcca_towers.dcca_towers(weights, x1, x2s[:streams])
+                again = dcca_towers.dcca_towers(weights, x1, x2s[:streams])
+                want = dcca_towers.dcca_towers_reference(weights, x1,
+                                                         x2s[:streams])
+                what = 'dcca_towers %d + %d x %d rows, D %d' % (
+                    width, streams, rows, dims)
+                for g, w, a in zip([got[0]] + got[1], [want[0]] + want[1],
+                                   [again[0]] + again[1]):
+                    worst = max(worst, require_close(torch, what, g, w,
+                                                     T1_TOL))
+                    if not torch.equal(a, g):
+                        raise AssertionError('%s: a second call gave other '
+                                             'bits' % what)
+    weights, params = tower_weights(torch, f1, f2, T1_HIDDEN, CCA_DIMS,
+                                    device, seed=CCA_DIMS)
+    x1 = torch.randn((SERVE_ROWS, f1), generator=gen, device=device)
+    x2s = [torch.randn((SERVE_ROWS, f2), generator=gen, device=device)
+           for _ in range(2)]
+    depth = len(T1_HIDDEN) + 1
+
+    def call():
+        return dcca_towers.dcca_towers(weights, x1, x2s)
+
+    def library():
+        return (_apply_mlp(params, x1, depth, 'tower1/'),
+                [_apply_mlp(params, x, depth, 'tower2/') for x in x2s])
+    ms, plain_ms = interleaved_ms(
+        torch, call,
+        lambda: dcca_towers.dcca_towers_reference(weights, x1, x2s))
+    library_ms = time_ms(torch, library)
+    library_busy = device_busy(torch, lambda: [library() for _ in range(10)])
+    limit, limited_by = tower_bound(SERVE_ROWS, f1, f2, T1_HIDDEN, CCA_DIMS)
+    on_device = device_ms(torch, call, T1_SYMBOL)
+    plan = weights.plan(SERVE_ROWS, 2)
+    timed = dict(
+        rows=SERVE_ROWS, f1=f1, f2=f2, hidden=T1_HIDDEN, dims=CCA_DIMS,
+        streams=2, cluster=plan.cluster,
+        clusters=[t.clusters for t in plan.tower],
+        kslices=[t.kslices for t in plan.tower],
+        chunk=[t.chunk for t in plan.tower], ms=ms,
+        host_ms=host_ms(torch, call), device_ms=on_device, plain_ms=plain_ms,
+        library_ms=library_ms,
+        library_device_ms=(None if library_busy[1] is None else
+                           library_busy[1] / 10 * 1e3),
+        bound_ms=limit, bound_by=limited_by,
+        share=None if on_device is None else limit / on_device,
+        max_abs_err=worst)
+    log('phase 3b dcca_towers (T1): matches plain within %s at %d + 31 '
+        'inputs (D 10 and 5) and 1000 + 31 (D 10), hidden %s, 1 to %d rows '
+        'a stream, one and two audio streams, the same bits twice; max abs '
+        'err %.3g' % (T1_TOL, f1, T1_HIDDEN, dcca_towers.MAX_ROWS, worst))
+    log('phase 3b dcca_towers served pair (%d rows, %d + 2 x %d inputs, D '
+        '%d; clusters of %d: %s, slices %s, chunks %s): call %.4f ms, host '
+        '%.4f ms, on the device %s, plain %.4f ms, the model\'s cuBLAS '
+        'towers (library) %.4f ms and %s on the device, bound %.5f ms (%s), '
+        'share %s; launches so far %d'
+        % (SERVE_ROWS, f1, f2, CCA_DIMS, timed['cluster'], timed['clusters'],
+           timed['kslices'], timed['chunk'], ms, timed['host_ms'],
+           fmt_ms(on_device), plain_ms, library_ms,
+           fmt_ms(timed['library_device_ms']), limit, limited_by,
+           'not measured' if on_device is None else
+           '%.1f%%' % (100 * limit / on_device),
+           kernels.launches['dcca_towers']))
+    return timed
+
+
 def phase_frontend(torch, device):
     """K3 against its plain version at the ingest shape, the gate shape
     of tpu_checks.py and a bucketed (valid_len) call."""
@@ -1120,7 +1254,7 @@ def check_against_plain(decisions, model_dir, stream,
 def reset_launches():
     from telluride_decoding_torch import kernels
     names = ('fused_cca_decode', 'lag_stack', 'fused_envelope_lagstack',
-             'ssd_update', 'ssd_sequence')
+             'ssd_update', 'ssd_sequence', 'dcca_towers')
     kernels.launches.clear()
     return lambda: {name: kernels.launches[name] for name in names}
 
@@ -3917,6 +4051,14 @@ def phase_sgd(torch, device, smi):
     cohort_s, cohort_csv = run_sgd_cohort(subjects, work, device)
     launches = read_launches()
     require_launched(launches, ('fused_cca_decode',), 'sgd')
+    # T1 once a served chunk of the DCCA (at most 64 rows a stream), and
+    # nowhere else: training and the whole test split take the stack.
+    chunks = sum(served_chunks(stream[0].shape[0], SERVE_ROWS,
+                               max(POST, IN2_POST))
+                 for stream in streams.values())
+    if on_card and launches['dcca_towers'] != chunks:
+        raise AssertionError('phase 14 launched T1 %d times for %d served '
+                             'DCCA chunks' % (launches['dcca_towers'], chunks))
     for kind in ('fullyconnected', 'dcca'):
         if not runs[kind][0]['dprime'] > 1.0:
             raise AssertionError('%s: dprime %s is not above 1'
@@ -4025,7 +4167,7 @@ def run_aot(device, models, stream, work):
     pipelined and through one serve_lines session, and is exported again
     on the CPU and served on ``device``. Returns the artifacts, the
     export seconds, each serve's (decisions, summary, seconds, K1
-    launches) and the serve_lines decisions."""
+    launches, T1 launches) and the serve_lines decisions."""
     import io
     from telluride_decoding_torch import kernels
     from telluride_decoding_torch.cli import export_aot, serve
@@ -4034,11 +4176,13 @@ def run_aot(device, models, stream, work):
     artifacts, export_s, served = {}, {}, {}
 
     def replay(key, path, extra=()):
-        before = kernels.launches['fused_cca_decode']
+        before = (kernels.launches['fused_cca_decode'],
+                  kernels.launches['dcca_towers'])
         decisions, summary, seconds = serve_stream(path, stream, device, 100,
                                                    extra)
         served[key] = (decisions, summary, seconds,
-                       kernels.launches['fused_cca_decode'] - before)
+                       kernels.launches['fused_cca_decode'] - before[0],
+                       kernels.launches['dcca_towers'] - before[1])
     first = next(iter(models))
     exports = [(name, str(device), name) for name in models]
     exports.append((first + ' exported on the cpu', 'cpu', first))
@@ -4115,12 +4259,18 @@ def check_aot(served, lines, models, stream, delay, on_card):
         raise AssertionError('non-finite served scores')
     if on_card:
         chunks = served_chunks(stream[0].shape[0], SERVE_ROWS, delay)
-        for key, (_, _, _, launches) in served.items():
+        for key, (_, _, _, launches, towers) in served.items():
             k1 = key.split(' ')[0] in ('cca', 'dcca')
             if launches != (chunks if k1 else 0):
                 raise AssertionError(
                     '%s launched K1 %d times for %d served chunks'
                     % (key, launches, chunks))
+            # T1 serves the DCCA directory's chunks; an artifact keeps the
+            # model's own stack.
+            if towers != (chunks if key == 'dcca dir' else 0):
+                raise AssertionError(
+                    '%s launched T1 %d times for %d served chunks'
+                    % (key, towers, chunks))
     return worst
 
 
@@ -4219,11 +4369,11 @@ def phase_aot(torch, device, smi):
     times = {name: aot_call_times(artifacts[name], models[name][0],
                                   models[name][1], stream, device)
              for name in models}
-    for key, (decisions, summary, seconds, k1) in served.items():
+    for key, (decisions, summary, seconds, k1, t1) in served.items():
         log('phase 15 aot serve %s: %d windows, %.1f s, p50 %s ms, p95 %s '
-            'ms, K1 launches %d'
+            'ms, K1 launches %d, T1 launches %d'
             % (key, len(decisions), seconds, summary.get('latency_p50_ms'),
-               summary.get('latency_p95_ms'), k1))
+               summary.get('latency_p95_ms'), k1, t1))
     log('phase 15 aot: served scores against the directory (0: the same '
         'bits): %s; infer_pair over the whole stream against the live '
         'decoder (relative): %s; each K1 serve launched K1 once for each '
@@ -4723,6 +4873,12 @@ def phase_several_devices(torch, device, smi, cohort_main=None):
     served = read_serve()
     if on_card:
         require_launched(served, ('fused_cca_decode',), '--dp_fit DCCA')
+        chunks = served_chunks(stream[0].shape[0], SERVE_ROWS,
+                               max(POST, IN2_POST))
+        if served['dcca_towers'] != chunks:
+            raise AssertionError('the --dp_fit DCCA\'s serve launched T1 %d '
+                                 'times for %d served chunks'
+                                 % (served['dcca_towers'], chunks))
     launches = add_launches(launches, served)
     log('phase 16 (d) cli.decoding --dp_fit in %d ranks each (gloo on one '
         'card), the DNN and the DCCA groups side by side, %.2f s from start '
@@ -4739,6 +4895,8 @@ def phase_several_devices(torch, device, smi, cohort_main=None):
            summed_launches(dp['dcca']), test_file, correct, windows,
            len(decisions), planted_share(decisions, stream[0].shape[0]),
            summary.get('latency_p50_ms'), served['fused_cca_decode'], smi))
+    log('phase 16 (d) the --dp_fit DCCA\'s serve: T1 launches %d'
+        % served['dcca_towers'])
     shutil.rmtree(work, ignore_errors=True)
     log('phase 16 several devices: %.1f s in all; launches %s; %s'
         % (time.perf_counter() - start, launches, smi))
@@ -4944,6 +5102,7 @@ def main():
     smi, hmma = phase_device(torch)
     k2 = phase_lagstack(torch, device)
     k1 = phase_decode(torch, device)
+    t1 = phase_towers(torch, device)
     codelab = phase_slice(torch, device, smi)
     k3 = phase_frontend(torch, device)
     phase_sosfilt(torch, device)
@@ -4962,8 +5121,9 @@ def main():
                 sweep[name] + cohort[name] + attention[name] +
                 raw_ingest[name] + model_files[name] + sgd[name] + aot[name]
                 + several[name] + walkthrough[name] for name in kuleuven}
-    log('K1 and K2 launches by phase: ' + json.dumps({
-        name: [phase['fused_cca_decode'], phase['lag_stack']]
+    log('K1, K2 and T1 launches by phase: ' + json.dumps({
+        name: [phase['fused_cca_decode'], phase['lag_stack'],
+               phase['dcca_towers']]
         for name, phase in (
             ('4 codelab', codelab), ('7 KULeuven', kuleuven),
             ('8 decoding', decoding), ('9 sweep', sweep),
@@ -4984,6 +5144,13 @@ def main():
              source='telluride_decoding_torch/csrc/lagstack.cu',
              replaces='telluride_decoding_tpu/ops/lagstack.py:93',
              launches=launches['lag_stack'], **k2, **common),
+        dict(name='dcca_towers',
+             source='telluride_decoding_torch/csrc/dcca_towers.cu',
+             replaces='none: the JAX package\'s deep CCA towers are XLA '
+                      'dense layers (telluride_decoding_tpu/models/cca.py:'
+                      '198); T1 takes the place of the port\'s cuBLAS '
+                      'products, bias adds and ReLUs',
+             launches=launches['dcca_towers'], **dict(common, **t1)),
         dict(name='fused_envelope_lagstack',
              source='telluride_decoding_torch/csrc/fused_frontend.cu',
              replaces='telluride_decoding_tpu/ops/fused_frontend.py:157',

@@ -5,8 +5,9 @@ The per-window serving path of a CCA model with the LDA reduction
 (``infer_one``/``infer_pair``) is one launch of kernel K1 per call:
 rotate both inputs, form the normalized correlation, project through the
 LDA, one score per frame (windows of T = 1). For a deep CCA model K1 runs
-on the towers' outputs (plain matrix products, bias adds and ReLUs in
-torch first), with the model's final CCA as its rotations. ``infer_pair``
+on the towers' outputs (a served chunk's towers in one launch of kernel
+T1; larger calls through plain matrix products, bias adds and ReLUs),
+with the model's final CCA as its rotations. ``infer_pair``
 scores both audio streams against one read of the brain window. The
 serving loop's pushes bring raw context windows (``LagRows``): the
 decoder uploads their frames and stacks them where it uses them, with
@@ -112,15 +113,23 @@ def _lags(value) -> Tuple[int, int]:
     return (value.pre, value.post) if isinstance(value, LagRows) else (0, 0)
 
 
+def _rows(frames, lags) -> int:
+    """The rows a call scores: input_1's frames less its context."""
+    return frames[0].shape[0] - sum(lags[0])
+
+
 class PairProgram(torch.nn.Module):
     """A decoder's two-stream program ``(input_1, input_2a, input_2b,
     output_a, output_b) -> (scores_a, scores_b)``, built from
     ``Decoder._build_pipeline`` with the statistics, the LDA and the
     model's weights as constants: what decode/aot.py exports.
 
-    It makes the split ``Decoder._scores`` makes. Where the fused decode
-    applies (a CCA or deep CCA model with the LDA reduction) it runs the
-    towers of a deep CCA model, then one op ``tdt::fused_cca_decode_f32``
+    It makes the split ``Decoder._scores_on`` makes. Where the fused
+    decode applies (a CCA or deep CCA model with the LDA reduction) it
+    runs the towers of a deep CCA model as the model's own stack (its
+    ``plain`` towers: no kernel T1, whose choice by row count would not
+    hold over the exported dynamic frame axis), then one op
+    ``tdt::fused_cca_decode_f32``
     (kernel K1 on the card) over both streams, on K1's operands held as
     buffers; otherwise ``_decode_tensors`` and ``correlate_reduce`` per
     stream in plain torch.
@@ -132,8 +141,8 @@ class PairProgram(torch.nn.Module):
         # A submodule, so the model's buffers are the program's.
         self.model = decoder.decoding_model
         self._dims = 0
-        folded, self._towers, self._correlate_reduce = (
-            decoder._build_pipeline())
+        folded, towers, self._correlate_reduce = decoder._build_pipeline()
+        self._towers = None if towers is None else towers.plain
         if folded is not None:
             self._dims = int(folded.rot1.shape[1])
             for name, tensor in zip(('rot1', 'rot2', 'consts'),
@@ -484,12 +493,17 @@ class Decoder:
         return ([self._tensor(_frames(v)) for v in inputs],
                 [_lags(v) for v in inputs])
 
-    def _count_served(self, pipeline: _Pipeline, lags):
-        """Counts what one call served, while a profiler runs: a deep CCA
-        model's tower passes, one a stream, and, on the card, one device
-        stack where a stream had context."""
-        if pipeline.towers is not None:
+    def _count_served(self, pipeline: _Pipeline, lags, rows: int):
+        """Counts what one call of ``rows`` rows a stream served, while a
+        profiler runs: a deep CCA model's tower passes, one a stream, and
+        those of them that ran kernel T1 (towers that tell, by ``fused``);
+        on the card, one device stack where a stream had context."""
+        towers = pipeline.towers
+        if towers is not None:
             profiling.count(profiling.TOWER_PASSES, len(lags))
+            fused = getattr(towers, 'fused', None)
+            if fused is not None and fused(rows):
+                profiling.count(profiling.FUSED_TOWER_PASSES, len(lags))
         if self._device.type == 'cuda' and any(map(sum, lags)):
             profiling.count(profiling.DEVICE_STACKS)
 
@@ -499,7 +513,7 @@ class Decoder:
         frames, lags = self._upload((input_dict['input_1'],
                                      input_dict['input_2']))
         (scores,) = self._scores_on(pipeline, frames, lags, [output])
-        self._count_served(pipeline, lags)
+        self._count_served(pipeline, lags, _rows(frames, lags))
         return scores.cpu().numpy()
 
     def _pair_scores(self, input_1, input_2a, input_2b, output_a,
@@ -510,7 +524,7 @@ class Decoder:
         with profiling.span('decoder.launch'):
             scores = self._scores_on(pipeline, frames, lags,
                                      (output_a, output_b))
-        self._count_served(pipeline, lags)
+        self._count_served(pipeline, lags, _rows(frames, lags))
         return scores
 
     def _plan_key(self, input_1, input_2a, input_2b):
@@ -573,7 +587,7 @@ class Decoder:
                     key, lambda: self._capture(key, inputs))
                 if plan is not None:
                     scores = plan.run([_frames(v) for v in inputs])
-                    self._count_served(key[0], key[2])
+                    self._count_served(key[0], key[2], key[1])
                     return scores
             scores_a, scores_b = self._pair_scores(
                 input_1, input_2a, input_2b, output_a, output_b)

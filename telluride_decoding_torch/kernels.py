@@ -134,6 +134,8 @@ def library() -> ctypes.CDLL:
         lib.tdt_ssd_update.restype = _INT
         lib.tdt_ssd_sequence.argtypes = [_VOID_P] * 6 + [_INT] * 6 + [_VOID_P]
         lib.tdt_ssd_sequence.restype = _INT
+        lib.tdt_dcca_towers.argtypes = [_VOID_P] * 10
+        lib.tdt_dcca_towers.restype = _INT
         lib.tdt_error_string.argtypes = [_INT]
         lib.tdt_error_string.restype = ctypes.c_char_p
         _lib = lib

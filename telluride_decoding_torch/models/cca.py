@@ -4,7 +4,7 @@ objective with a closed-form CCA of their outputs on top."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -17,6 +17,7 @@ from telluride_decoding_torch.models.brain_model import (BrainModel,
                                                          _mlp_keys,
                                                          dataset_arrays,
                                                          register_model)
+from telluride_decoding_torch.ops import dcca_towers
 from telluride_decoding_torch.ops.covariance import (MomentStats,
                                                      moments_from_arrays,
                                                      pad_to_bucket)
@@ -140,6 +141,51 @@ class BrainModelCCA(BrainModel):
         self.eigenvalues = solution.eigenvalues.cpu().numpy()
 
 
+class DccaTowers:
+    """Both towers of one parameter set of a deep CCA model, as a
+    function ``(x1, [x2, ...]) -> (h1, [h2, ...])`` computing what
+    ``BrainModelDCCA.tower`` computes. It holds those parameters, and
+    their copy packed for kernel T1 (``ops/dcca_towers.py``): a refit
+    replaces them, so a CUDA graph captured through it keeps reading the
+    weights it was captured with, alive at their addresses.
+
+    It adapts by shape: a call of at most ``dcca_towers.MAX_ROWS`` rows a
+    stream with the weights packed on the card (``fused``) is one launch
+    of T1; every other call (the CPU, evaluation over whole splits,
+    widths beyond T1's) runs the model's own stack, ``_apply_mlp``, one
+    product, bias add and ReLU at a time (``plain``).
+    """
+
+    def __init__(self, model: 'BrainModelDCCA',
+                 params: Dict[str, torch.Tensor]):
+        self._model = model
+        self._params = params
+        depth = len(model._hidden) + 1
+        self.weights = dcca_towers.TowerWeights(*(
+            [(params['tower%d/%d/w' % (index, i)],
+              params['tower%d/%d/b' % (index, i)]) for i in range(depth)]
+            for index in (1, 2)))
+
+    def fused(self, rows: int) -> bool:
+        """Whether a call of ``rows`` rows a stream runs kernel T1."""
+        return self.weights.launches(rows)
+
+    def plain(self, x1, x2s) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The model's own stack on each stream."""
+        model, params = self._model, self._params
+        return (model._tower(params, 1, model.as_tensor(x1).float()),
+                [model._tower(params, 2, model.as_tensor(x2).float())
+                 for x2 in x2s])
+
+    def __call__(self, x1, x2s) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        if not self.fused(x1.shape[0]):
+            return self.plain(x1, x2s)
+        model = self._model
+        return dcca_towers.dcca_towers(
+            self.weights, model.as_tensor(x1).float(),
+            [model.as_tensor(x2).float() for x2 in x2s])
+
+
 @register_model
 class BrainModelDCCA(_SgdModel):
     """Deep CCA (JAX models/cca.py:138-280): two MLP towers trained to
@@ -217,19 +263,10 @@ class BrainModelDCCA(_SgdModel):
         return self._tower(self._require_params(), index,
                            self.as_tensor(x).float())
 
-    def towers(self) -> Callable:
-        """Both towers of the current parameters, as a function
-        ``(x1, [x2, ...]) -> (h1, [h2, ...])`` computing what ``tower``
-        computes. It holds those parameters: a refit replaces them, so a
-        CUDA graph captured through it keeps reading the weights it was
-        captured with, alive at their addresses."""
-        params = self._require_params()
-
-        def apply(x1, x2s):
-            return (self._tower(params, 1, self.as_tensor(x1).float()),
-                    [self._tower(params, 2, self.as_tensor(x2).float())
-                     for x2 in x2s])
-        return apply
+    def towers(self) -> 'DccaTowers':
+        """Both towers of the current parameters (DccaTowers): their
+        weights packed for kernel T1 once, here."""
+        return DccaTowers(self, self._require_params())
 
     def input_widths(self) -> Tuple[int, int]:
         """(F1, F2): the widths the two towers take."""

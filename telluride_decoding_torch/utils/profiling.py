@@ -15,7 +15,8 @@ a piece of host work, ``count(name, n)`` (``host_wait`` for the counter
 and ``GRAPH_CAPTURES`` for the decoder's resident push plans,
 decode/push_plan.py, and ``DEVICE_STACKS`` for decoder calls that
 stack raw context windows on the card; ``TOWER_PASSES`` for a deep CCA
-decoder's tower passes), ``recorded()`` and ``reset()``. It records while a
+decoder's tower passes and ``FUSED_TOWER_PASSES`` for those that ran
+kernel T1), ``recorded()`` and ``reset()``. It records while a
 torch profiler runs, and only then: ``torch.profiler.profile`` (the
 benchmark's traced slice) or ``trace`` (an operator's ``--trace_dir``).
 Off, a span costs one read of torch's own flag and hands back a shared
@@ -50,6 +51,8 @@ GRAPH_CAPTURES = 'decoder.graph_captures'
 # A deep CCA decoder's tower passes served (one a stream: 3 a pair), eager
 # or inside a push plan's graph.
 TOWER_PASSES = 'decoder.tower_passes'
+# Those of them that ran kernel T1 (ops/dcca_towers.py), replays included.
+FUSED_TOWER_PASSES = 'decoder.fused_tower_passes'
 # Decoder calls whose raw context windows were lag-stacked on the card
 # (one a call, with or without a push plan).
 DEVICE_STACKS = 'decoder.device_stacks'

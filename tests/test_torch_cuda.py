@@ -22,7 +22,10 @@ rounds of Newton steps amplify that). S1's sequence form against its
 window form: bit for bit (the same device function on the same inputs).
 The decoder's resident push plan against the decoder's path without it:
 bit for bit (K1's launch on the same inputs and operands; a deep CCA's
-towers, the same products, bias adds and ReLUs, captured in the graph).
+towers, the same launch of T1, or the same products, bias adds and ReLUs,
+captured in the graph). T1, the deep CCA's towers in one launch, against
+its plain version: rtol 1e-5 / atol 1e-5 (TOWER_TOL: float32 sums in
+another order); against itself, bit for bit (no atomics).
 """
 
 import numpy as np
@@ -1219,6 +1222,129 @@ def test_push_plan_dcca_after_a_refit_mid_stream(cuda, profiled):
         assert counts == [(1, 0, 0, 5), (1, 1, 1, 1), (1, 1, 0, 1),
                           (1, 1, 0, 1)][push], push
     assert len(decoder._push_plans) == 2
+
+
+def _tower_weights(cuda, f1, f2, hidden, dims, seed):
+    """Both towers' layers, He-scaled weights and biases N(0, 0.01), as
+    the model holds them, and T1's TowerWeights of them on the card."""
+    from telluride_decoding_torch.ops import dcca_towers
+    rng = np.random.RandomState(seed)
+    towers = []
+    for width in (f1, f2):
+        widths = [width] + hidden + [dims]
+        towers.append([
+            (torch.as_tensor(rng.randn(widths[i], widths[i + 1]) *
+                             np.sqrt(2.0 / widths[i]), dtype=torch.float32,
+                             device=cuda),
+             torch.as_tensor(0.1 * rng.randn(widths[i + 1]),
+                             dtype=torch.float32, device=cuda))
+            for i in range(len(widths) - 1)])
+    return dcca_towers.TowerWeights(*towers)
+
+
+# T1 against the plain towers: float32 sums in another order (a first
+# layer of up to 2553 inputs split in 16 slices, then two more layers) move
+# an output by a few float32 roundings of the largest (about 2e-6 at the
+# served widths, outputs of 5), far inside 1e-5 relative and absolute; a
+# product in TF32 or a dropped ReLU moves it by 1e-3 or more.
+TOWER_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('f1,f2,hidden,dims', [
+    (2553, 31, [128, 64], 10), (2553, 31, [128, 64], 5),
+    (1000, 31, [128, 64], 10), (60, 7, [20, 20], 10)])
+@pytest.mark.parametrize('rows', [1, 16, 29, 32, 64])
+def test_dcca_towers_match_plain(cuda, f1, f2, hidden, dims, rows):
+    """T1 against its plain version at the served shapes (codelab widths,
+    D 10 and 5), at 1000 inputs (slices of 125, chunks that end inside a
+    quad of inputs) and at small widths; one launch a call, one or two
+    audio streams, and the same bits on a second call."""
+    from telluride_decoding_torch.ops import dcca_towers
+    weights = _tower_weights(cuda, f1, f2, hidden, dims, seed=rows)
+    assert weights.packed is not None and weights.launches(rows)
+    rng = np.random.RandomState(rows + 1)
+    x1 = torch.as_tensor(rng.randn(rows, f1), dtype=torch.float32,
+                         device=cuda)
+    x2s = [torch.as_tensor(rng.randn(rows, f2), dtype=torch.float32,
+                           device=cuda) for _ in range(2)]
+    for streams in (1, 2):
+        before = kernels.launches['dcca_towers']
+        h1, h2s = dcca_towers.dcca_towers(weights, x1, x2s[:streams])
+        again = dcca_towers.dcca_towers(weights, x1, x2s[:streams])
+        torch.cuda.synchronize()
+        assert kernels.launches['dcca_towers'] == before + 2
+        want1, want2s = dcca_towers.dcca_towers_reference(weights, x1,
+                                                          x2s[:streams])
+        torch.testing.assert_close(h1, want1, **TOWER_TOL)
+        assert len(h2s) == streams
+        for got, want in zip(h2s, want2s):
+            torch.testing.assert_close(got, want, **TOWER_TOL)
+        assert torch.equal(again[0], h1)
+        assert all(torch.equal(a, b) for a, b in zip(again[1], h2s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['rows', 'dtype', 'streams', 'contiguous',
+                                  'unpacked'])
+def test_dcca_towers_refuse_calls_beyond_their_limits(cuda, case):
+    """A CUDA call T1 does not take raises and launches nothing."""
+    from telluride_decoding_torch.ops import dcca_towers
+    weights = _tower_weights(cuda, 2553, 31, [128, 64], 10, seed=0)
+    rows = 65 if case == 'rows' else 32
+    x1 = torch.randn((rows, 2553), device=cuda)
+    x2s = [torch.randn((rows, 31), device=cuda) for _ in range(2)]
+    if case == 'dtype':
+        x1 = x1.double()
+    elif case == 'streams':
+        x2s = x2s + x2s[:1]
+    elif case == 'contiguous':
+        x1 = torch.randn((rows, 2 * 2553), device=cuda)[:, ::2]
+    elif case == 'unpacked':
+        weights = _tower_weights(cuda, 2553, 31, [512], 10, seed=0)
+        assert weights.packed is None
+    before = kernels.launches['dcca_towers']
+    with pytest.raises(ValueError):
+        dcca_towers.dcca_towers(weights, x1, x2s)
+    assert kernels.launches['dcca_towers'] == before
+
+
+@pytest.mark.cuda
+def test_push_plan_dcca_replays_t1_once_and_no_tower_product(cuda):
+    """A deep CCA push plan at codelab widths: every push, eager first
+    sights and replays alike, launches T1 once (kernels.launches, and one
+    kernel of T1 a push in the device trace) and no cuBLAS product; three
+    tower passes a push, all fused."""
+    from torch.profiler import ProfilerActivity, profile
+    from telluride_decoding_torch.utils import profiling
+    f1, f2, hidden, dims, rows = DCCA_PLAN
+    decoder = _dcca_plan_decoder(cuda, f1, f2, hidden, dims, seed=12)
+    rng = np.random.RandomState(6)
+    pushes = 23
+    before = kernels.launches['dcca_towers']
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for push in range(pushes):
+                _, counts = _counted_push(decoder,
+                                          _push_args(rng, rows, f1, f2))
+                assert counts[1] == (push >= 1), push
+            torch.cuda.synchronize()
+        counters = profiling.recorded().counters
+    finally:
+        profiling.reset()
+    assert kernels.launches['dcca_towers'] == before + pushes
+    assert (counters.get(profiling.TOWER_PASSES, 0),
+            counters.get(profiling.FUSED_TOWER_PASSES, 0)) == (
+                3 * pushes, 3 * pushes)
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum(e.count for e in device
+               if 'dcca_towers_kernel' in e.key) == pushes, [
+                   e.key for e in device]
+    assert not [e.key for e in device
+                if 'gemm' in e.key.lower() or 'splitk' in e.key.lower()]
 
 
 # Raw windows (LagRows, the serving loop's) at the three served widths:
