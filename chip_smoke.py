@@ -220,6 +220,7 @@ F32_SYMBOL = 'fused_cca_decode_cluster_kernel'  # K1's float32 kernel.
 T1_SYMBOL = 'dcca_towers_kernel'               # T1, the deep CCA's towers.
 T1_TOL = dict(rtol=1e-5, atol=1e-5)            # T1 vs plain: sums reordered.
 T1_HIDDEN = [128, 64]                          # The codelab DCCA's towers.
+DNN_HIDDEN = [20, 20]                          # The toolbox's default DNN.
 # Phase 11: the state-space decoder (kernel S1) and the infer sweep. The
 # infer corpus: train files attending speaker 1, a test file whose
 # attention switches every INFER_SEGMENT frames (three switches).
@@ -981,6 +982,108 @@ def phase_towers(torch, device):
            'not measured' if on_device is None else
            '%.1f%%' % (100 * limit / on_device),
            kernels.launches['dcca_towers']))
+    return timed
+
+
+def phase_dnn_plan(torch, device):
+    """The toolbox's default decoder, the fullyconnected DNN regressor
+    (2553 -> 20 -> 20 -> 1, LDA), served a pair at a time on the push
+    plan: raw windows of 32 rows (EEG lagged 0..36, audio of no context)
+    and the two envelopes staged; from the key's second push (its
+    capture) every push replays the plan once, with one prediction, and its
+    scores are the eager route's bits (the same pushes with the inputs
+    already on the card). Times a push on the plan against the eager
+    route of host inputs (``infer_pair_async``: five uploads, the same
+    composition, two reads), in the order plan, eager, eager, plan, and
+    the card's busy time a plan push."""
+    from torch.profiler import ProfilerActivity, profile
+    from telluride_decoding_torch.decode.infer_decoder import (
+        CorrelationParamsTuple, LinearRegressionDecoder, ModelParamsTuple)
+    from telluride_decoding_torch.models.brain_model import BrainModelDNN
+    from telluride_decoding_torch.ops.lagstack import LagRows
+    from telluride_decoding_torch.solvers.lda import LdaParams
+    from telluride_decoding_torch.utils import profiling
+    f1 = IN1_CHANNELS * (PRE + 1 + POST)
+    rng = np.random.RandomState(25)
+    widths = [f1] + DNN_HIDDEN + [1]
+    flat = {}
+    for i in range(len(widths) - 1):
+        flat['layers/%d/w' % i] = rng.randn(
+            widths[i], widths[i + 1]) * np.sqrt(2.0 / widths[i])
+        flat['layers/%d/b' % i] = 0.1 * rng.randn(widths[i + 1])
+    model = BrainModelDNN.from_numpy(flat, device, config={
+        'num_hidden_list': DNN_HIDDEN, 'input_width': f1, 'output_width': 1,
+        'dropout': 0.0, 'batch_norm': False})
+    decoder = LinearRegressionDecoder(model, reduction='lda', device=device)
+    one = np.ones(1)
+    decoder.model_params = ModelParamsTuple(
+        CorrelationParamsTuple(1, one, one, one, one, 0.1 * rng.randn(1),
+                               0.1 * rng.randn(1), 1.0 + rng.rand(1)),
+        LdaParams(rng.randn(1, 1), np.zeros((1, 1)), np.array([0, 1]),
+                  np.zeros((2, 1)), 0.1, 0.5))
+
+    def push_args():
+        audio = [np.abs(rng.randn(SERVE_ROWS, 1)).astype(np.float32)
+                 for _ in range(2)]
+        return (LagRows(rng.randn(PRE + SERVE_ROWS + POST, IN1_CHANNELS)
+                        .astype(np.float32), PRE, POST),
+                *(LagRows(a, 0, 0) for a in audio), *audio)
+    pushes = [push_args() for _ in range(8)]
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            for n, args in enumerate(pushes):
+                before = dict(profiling.recorded().counters)
+                got = decoder.infer_pair(*args)
+                want = decoder.infer_pair(*(
+                    torch.as_tensor(np.asarray(a), device=device)
+                    for a in args))
+                for g, w in zip(got, want):
+                    if not np.array_equal(g, w):
+                        raise AssertionError('push %d: the plan\'s scores '
+                                             'are not the eager route\'s '
+                                             'bits' % n)
+                counters = profiling.recorded().counters
+                replays = (counters.get(profiling.GRAPH_REPLAYS, 0) -
+                           before.get(profiling.GRAPH_REPLAYS, 0))
+                if replays != (n >= 1):
+                    raise AssertionError('push %d replayed %d plans'
+                                         % (n, replays))
+        counters = profiling.recorded().counters
+    finally:
+        profiling.reset()
+    # Two calls a push: the pair and its eager check.
+    if counters.get(profiling.PREDICT_PASSES) != 2 * len(pushes):
+        raise AssertionError('predictions: %s' % counters)
+    args = pushes[-1]
+
+    def on_plan():
+        return decoder.infer_pair(*args)
+
+    def eager():
+        return decoder.infer_pair_async(*args).harvest()
+
+    def wall_ms(fn, reps=300):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+    plan_ms = [wall_ms(on_plan)]
+    eager_ms = [wall_ms(eager), wall_ms(eager)]
+    plan_ms.append(wall_ms(on_plan))
+    busy = device_busy(torch, lambda: [on_plan() for _ in range(50)])
+    timed = dict(rows=SERVE_ROWS, f1=f1, hidden=DNN_HIDDEN,
+                 plan_ms=sum(plan_ms) / 2, eager_ms=sum(eager_ms) / 2,
+                 device_ms=(None if busy[1] is None else
+                            (busy[1] + busy[2]) / 50 * 1e3),
+                 graph_replays=len(pushes) - 1)
+    log('phase 3c DNN on the push plan (%d rows, %d -> %s -> 1, LDA): %d '
+        'pushes, the plan\'s scores the eager route\'s bits, one '
+        'prediction a call; a push on the plan %.4f ms, eager %.4f ms; the '
+        'card busy %s a plan push'
+        % (SERVE_ROWS, f1, DNN_HIDDEN, len(pushes), timed['plan_ms'],
+           timed['eager_ms'], fmt_ms(timed['device_ms'])))
     return timed
 
 
@@ -5103,6 +5206,7 @@ def main():
     k2 = phase_lagstack(torch, device)
     k1 = phase_decode(torch, device)
     t1 = phase_towers(torch, device)
+    phase_dnn_plan(torch, device)
     codelab = phase_slice(torch, device, smi)
     k3 = phase_frontend(torch, device)
     phase_sosfilt(torch, device)

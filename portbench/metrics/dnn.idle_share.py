@@ -1,0 +1,12 @@
+"""Share of a DNN serving window's traced slice, in %, in which the card
+ran no kernel or copy, as device.idle_share.serve reads it: 1 - busy /
+window, busy the union of the profiler's device events. A cell of its
+own, since the DNN cell reports the push's latency and not its frames a
+second."""
+
+
+def read(readings):
+    if readings.get('model') != 'dnn' or 'trace' not in readings:
+        return None
+    traced = readings['trace']
+    return 100.0 * (1.0 - traced['busy_s'] / traced['window_s'])

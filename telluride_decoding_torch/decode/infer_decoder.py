@@ -18,8 +18,12 @@ push plan (decode/push_plan.py) that captured it: one copy in, that
 composition and one copy out as one CUDA graph, and one wait.
 ``frame_scores`` scores a whole test split in one ``infer_one`` call, so
 its K1 launch covers every frame of the split. The other reductions, and
-the linear regression decoder, run as plain torch, as ``_reduce`` does
-in the JAX package.
+the regression decoders, run as plain torch, as ``_reduce`` does in the
+JAX package: a regression model whose prediction reads input_1 alone
+(the linear and fullyconnected regressors) predicts once a call, and
+each talker's envelope is correlated with that prediction; such a
+decoder's pushes ride a push plan too, its envelopes staged beside the
+frames.
 
 ``decoder_model.json`` stays wire-compatible with the JAX package and the
 reference: the same ModelParams namedtuple structure, complex arrays
@@ -472,15 +476,17 @@ class Decoder:
         A stream with context is lag-stacked (K2 on the card; on the CPU
         the plain stack), row t the row of frame pre + t: a copy, the
         host stack's bits. Then a deep CCA model's towers and kernel K1,
-        or, for a pipeline without K1, ``_decode_tensors`` and
-        ``correlate_reduce`` against ``outputs``."""
+        or, for a pipeline without K1, the model's predictions
+        (``_decode_streams``) and ``correlate_reduce`` against each
+        stream's output, ``outputs`` on this decoder's device: [streams,
+        rows] (or [streams, rows, D] for 'all')."""
         x1, *x2s = (lag_stack(x, 0, pre + post)[:len(x) - pre - post]
                     if pre + post else x
                     for x, (pre, post) in zip(frames, lags))
         if pipeline.folded is None:
-            return [pipeline.correlate_reduce(*self._decode_tensors(
-                {'input_1': x1, 'input_2': x2}, self._tensor(y)))
-                for x2, y in zip(x2s, outputs)]
+            return torch.stack([
+                pipeline.correlate_reduce(r1, r2)
+                for r1, r2 in self._decode_streams(x1, x2s, outputs)])
         x1, x2s = self._kernel_inputs(pipeline.towers, x1, x2s)
         # Kernel K1, per-frame scores: windows of one frame.
         scores = fused_cca_decode(
@@ -488,16 +494,39 @@ class Decoder:
             x2s[1][:, None, :] if len(x2s) > 1 else None)
         return scores if len(x2s) > 1 else scores[None]
 
-    def _upload(self, inputs):
-        """Each input's frames on this decoder's device, and its lags."""
+    def _decode_streams(self, x1: torch.Tensor, x2s: List[torch.Tensor],
+                        outputs: Sequence[torch.Tensor]
+                        ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """(r1, r2) of each input_2 stream against input_1 and the
+        stream's output: the model's forward passes (span
+        ``decoder.predict``), one a stream."""
+        with profiling.span('decoder.predict'):
+            return [self._decode_tensors({'input_1': x1, 'input_2': x2}, y)
+                    for x2, y in zip(x2s, outputs)]
+
+    def _shares_prediction(self) -> bool:
+        """Whether one forward pass of the model serves every input_2
+        stream of a call without K1 (``LinearRegressionDecoder``)."""
+        return False
+
+    def _upload(self, pipeline: _Pipeline, inputs, outputs=()):
+        """Each input's frames on this decoder's device, its lags, and
+        for a pipeline without K1 the outputs on the device (K1 reads
+        none)."""
         return ([self._tensor(_frames(v)) for v in inputs],
-                [_lags(v) for v in inputs])
+                [_lags(v) for v in inputs],
+                [] if pipeline.folded is not None else
+                [self._tensor(y) for y in outputs])
 
     def _count_served(self, pipeline: _Pipeline, lags, rows: int):
         """Counts what one call of ``rows`` rows a stream served, while a
         profiler runs: a deep CCA model's tower passes, one a stream, and
         those of them that ran kernel T1 (towers that tell, by ``fused``);
-        on the card, one device stack where a stream had context."""
+        without K1, the model's forward passes; on the card, one device
+        stack where a stream had context."""
+        if pipeline.folded is None:
+            profiling.count(profiling.PREDICT_PASSES,
+                            1 if self._shares_prediction() else len(lags) - 1)
         towers = pipeline.towers
         if towers is not None:
             profiling.count(profiling.TOWER_PASSES, len(lags))
@@ -510,9 +539,10 @@ class Decoder:
     def infer_one(self, input_dict, output) -> np.ndarray:
         """Scores of one minibatch: [N] (or [N, D] for 'all')."""
         pipeline = self._current_pipeline()
-        frames, lags = self._upload((input_dict['input_1'],
-                                     input_dict['input_2']))
-        (scores,) = self._scores_on(pipeline, frames, lags, [output])
+        frames, lags, outputs = self._upload(
+            pipeline, (input_dict['input_1'], input_dict['input_2']),
+            [output])
+        (scores,) = self._scores_on(pipeline, frames, lags, outputs)
         self._count_served(pipeline, lags, _rows(frames, lags))
         return scores.cpu().numpy()
 
@@ -520,23 +550,25 @@ class Decoder:
                      output_b):
         pipeline = self._current_pipeline()
         with profiling.span('decoder.copy_in'):
-            frames, lags = self._upload((input_1, input_2a, input_2b))
+            frames, lags, outputs = self._upload(
+                pipeline, (input_1, input_2a, input_2b), (output_a, output_b))
         with profiling.span('decoder.launch'):
-            scores = self._scores_on(pipeline, frames, lags,
-                                     (output_a, output_b))
+            scores = self._scores_on(pipeline, frames, lags, outputs)
         self._count_served(pipeline, lags, _rows(frames, lags))
         return scores
 
-    def _plan_key(self, input_1, input_2a, input_2b):
+    def _plan_key(self, input_1, input_2a, input_2b, *outputs):
         """(pipeline, rows, each stream's (pre, post)): the key of the
         resident push plan for these inputs, or None where the plan does
-        not apply: a decoder off the card, a pipeline without K1 (no CCA
-        or deep CCA model with the LDA reduction), or inputs that are not
-        all numpy arrays or all LagRows (raw windows, the two audio
-        windows alike) of [rows, F1] and [rows, F2] with rows >= 1 (a
-        deep CCA model's F1 and F2 are its towers' input widths). A host
-        array is a window with no context. A refit, a ``set_params`` or
-        new statistics build a new pipeline, so a new key."""
+        not apply: a decoder off the card, inputs that are not all numpy
+        arrays or all LagRows (raw windows, the two audio windows alike)
+        of rows >= 1, or a pipeline served by neither kernel K1 (a CCA or
+        deep CCA model with the LDA reduction, inputs of [rows, F1] and
+        [rows, F2]; a deep CCA model's F1 and F2 are its towers' input
+        widths) nor ``_outputs_key`` (a regression decoder, which adds
+        the widths of its inputs and ``outputs``). A host array is a
+        window with no context. A refit, a ``set_params`` or new
+        statistics build a new pipeline, so a new key."""
         if self._device.type != 'cuda':
             return None
         inputs = (input_1, input_2a, input_2b)
@@ -545,30 +577,46 @@ class Decoder:
                 or all(isinstance(v, LagRows) for v in inputs)):
             return None
         lags = tuple(_lags(v) for v in inputs)
-        pipeline = self._current_pipeline()
-        if lags[1] != lags[2] or pipeline.folded is None:
+        (rows, f1), shape_2a, shape_2b = (v.shape for v in inputs)
+        if (lags[1] != lags[2] or not rows or shape_2a != shape_2b
+                or shape_2a[0] != rows):
             return None
-        rows = input_1.shape[0]
-        f1, f2 = self._input_widths(pipeline.folded)
-        if not (rows and input_1.shape == (rows, f1)
-                and input_2a.shape == input_2b.shape == (rows, f2)):
+        pipeline = self._current_pipeline()
+        if pipeline.folded is None:
+            return self._outputs_key(pipeline, rows, lags,
+                                     (f1, shape_2a[1]), outputs)
+        if (f1, shape_2a[1]) != self._input_widths(pipeline.folded):
             return None
         return pipeline, rows, lags
 
-    def _capture(self, key, inputs) -> push_plan.PushPlan:
+    def _outputs_key(self, pipeline: _Pipeline, rows: int, lags, widths,
+                     outputs) -> Optional[tuple]:
+        """The plan key of a pipeline without K1, which also stages the
+        ``outputs`` it correlates with; None here: only a regression
+        decoder's pipeline without K1 rides a plan."""
+        del pipeline, rows, lags, widths, outputs
+        return None
+
+    def _capture(self, key, inputs, outputs) -> push_plan.PushPlan:
         """The push plan of ``key``: ``_scores_on`` of its pipeline and
-        lags on frames of the inputs' shapes, as a function that holds
-        what the graph reads (the pipeline; K1's operands, which
-        prepared_operands' LRU may drop) and the decoder weakly (a cycle
-        would leave the graphs to the cyclic collector, which may free
-        them inside another capture and so break it)."""
-        pipeline, rows, lags = key
-        operands = prepared_operands(pipeline.folded, torch.float32)
+        lags on frames of the inputs' shapes (and, without K1, on
+        ``outputs`` of their shapes, staged after the frames), as a
+        function that holds what the graph reads (the pipeline; K1's
+        operands, which prepared_operands' LRU may drop; a model's
+        parameters, which a refit replaces) and the decoder weakly (a
+        cycle would leave the graphs to the cyclic collector, which may
+        free them inside another capture and so break it)."""
+        pipeline, rows, lags = key[:3]
+        held = (getattr(self._decoding_model, 'params', None)
+                if pipeline.folded is None else
+                prepared_operands(pipeline.folded, torch.float32))
         decoder = weakref.proxy(self)
+        streams = len(inputs)
         return push_plan.PushPlan(
-            lambda frames, held=operands: decoder._scores_on(
-                pipeline, frames, lags),
-            [_frames(v).shape for v in inputs], rows, self._device)
+            lambda staged, held=held: decoder._scores_on(
+                pipeline, staged[:streams], lags, staged[streams:]),
+            [_frames(v).shape for v in inputs] + [y.shape for y in outputs],
+            rows, self._device)
 
     def infer_pair(self, input_1, input_2a, input_2b, output_a,
                    output_b) -> Tuple[np.ndarray, np.ndarray]:
@@ -580,13 +628,17 @@ class Decoder:
         replays that resident plan (decode/push_plan.py), captured on
         the key's second sight; the scores are the same bits."""
         with profiling.span('decoder.infer_pair'):
-            key = self._plan_key(input_1, input_2a, input_2b)
+            key = self._plan_key(input_1, input_2a, input_2b, output_a,
+                                 output_b)
             if key is not None:
                 inputs = (input_1, input_2a, input_2b)
+                outputs = ((output_a, output_b) if key[0].folded is None
+                           else ())
                 plan = self._push_plans.plan(
-                    key, lambda: self._capture(key, inputs))
+                    key, lambda: self._capture(key, inputs, outputs))
                 if plan is not None:
-                    scores = plan.run([_frames(v) for v in inputs])
+                    scores = plan.run([_frames(v) for v in inputs] +
+                                      list(outputs))
                     self._count_served(key[0], key[2], key[1])
                     return scores
             scores_a, scores_b = self._pair_scores(
@@ -792,7 +844,39 @@ class Decoder:
 
 
 class LinearRegressionDecoder(Decoder):
-    """Decoder pairing ground truth with regression predictions."""
+    """Decoder pairing ground truth with regression predictions.
+
+    A model that reads input_1 alone (``reads_input_1_only``: the linear
+    and fullyconnected regressors) predicts once a call for every
+    stream; a model that reads input_2 too (the classifier) once a
+    stream. On the card a synchronous push of host arrays or raw windows
+    with a reduction of one score a frame rides a push plan, which
+    stages the two envelopes beside the frames."""
+
+    def _shares_prediction(self):
+        return bool(getattr(self._decoding_model, 'reads_input_1_only',
+                            False))
+
+    def _decode_streams(self, x1, x2s, outputs):
+        """One prediction for every stream's output, where the model's
+        prediction reads input_1 alone."""
+        if not self._shares_prediction():
+            return super()._decode_streams(x1, x2s, outputs)
+        with profiling.span('decoder.predict'):
+            prediction = self._decoding_model({'input_1': x1})
+        return [(y, prediction) for y in outputs]
+
+    def _outputs_key(self, pipeline, rows, lags, widths, outputs):
+        """(pipeline, rows, lags, (F1, F2, the outputs' width)) where the
+        reduction gives one score a frame (any but 'all') and the two
+        outputs are host arrays of [rows, width]."""
+        if (self._reduction == 'all' or len(outputs) != 2
+                or not all(isinstance(y, np.ndarray) and y.ndim == 2
+                           and y.shape == outputs[0].shape
+                           for y in outputs)
+                or outputs[0].shape[0] != rows):
+            return None
+        return pipeline, rows, lags, widths + (outputs[0].shape[1],)
 
     def decode_one(self, input_dict, ground_truth):
         with torch.no_grad():

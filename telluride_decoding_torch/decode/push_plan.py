@@ -5,15 +5,17 @@ has no counterpart).
 
 A synchronous ``Decoder.infer_pair`` of host arrays on the card
 otherwise pays, every push, for three blocking copies from pageable
-memory, the launch path of each kernel and tower product it runs and
-two blocking reads. A ``PushPlan`` captures a function ``run`` of the
-three streams' frames on the card, which gives the [2, rows] scores
+memory (five for a regression decoder, which also reads each talker's
+envelope), the launch path of each kernel and product it runs and two
+blocking reads. A ``PushPlan`` captures a function ``run`` of the
+inputs it stages on the card (the three streams' frames, then a
+regression decoder's two envelopes), which gives the [2, rows] scores
 (the decoder hands it ``Decoder._scores_on`` of one pipeline and each
 stream's lags, which the eager path runs too), and holds:
 
-  * one pinned host staging buffer holding the three frame blocks
-    packed, each from a 256-byte boundary, and the device buffer it is
-    copied to, whose views ``run`` reads;
+  * one pinned host staging buffer holding those blocks packed, each
+    from a 256-byte boundary, and the device buffer it is copied to,
+    whose views ``run`` reads;
   * the [2, rows] scores on the card and a pinned host copy of them;
   * a CUDA graph of the staging buffer's copy to the card, ``run`` and
     the scores' copy back, then a record of one CUDA event (an external
@@ -21,9 +23,9 @@ stream's lags, which the eager path runs too), and holds:
     to wait on it);
   * ``run``, and with it whatever memory the graph reads.
 
-A push copies its frames into the staging buffer with numpy, replays the
+A push copies its inputs into the staging buffer with numpy, replays the
 graph and waits on the event once: the same scores as ``run`` gives
-without a plan on the same frames, bit for bit. The launches that the
+without a plan on the same inputs, bit for bit. The launches that the
 capture counted in ``kernels.launches`` are wound back, since a capture
 runs nothing, and each replay counts them again. ``PushPlans`` keeps a
 decoder's plans.
@@ -45,8 +47,9 @@ _ALIGN = 64
 
 
 class PushPlan:
-    """One captured push of ``run`` on frames of ``frame_shapes`` (one a
-    stream: input_1, input_2a, input_2b) giving [2, rows] scores."""
+    """One captured push of ``run`` on staged inputs of ``frame_shapes``
+    (one a stream: input_1, input_2a, input_2b; then, for a regression
+    decoder, output_a and output_b) giving [2, rows] scores."""
 
     def __init__(self, run: Callable[[List[torch.Tensor]], torch.Tensor],
                  frame_shapes: Sequence[Tuple[int, int]], rows: int,
@@ -84,8 +87,8 @@ class PushPlan:
 
     def run(self, frames: Sequence[np.ndarray]
             ) -> Tuple[np.ndarray, np.ndarray]:
-        """The two score rows of one push of host ``frames`` of the
-        plan's shapes; one wait on the card."""
+        """The two score rows of one push of host ``frames`` (every
+        staged input) of the plan's shapes; one wait on the card."""
         with profiling.span('decoder.copy_in'):
             for host, value in zip(self._host_inputs, frames):
                 np.copyto(host, value)

@@ -79,6 +79,9 @@ class BrainModel(torch.nn.Module):
     loss_name = 'mse'
     metric_names: Sequence[str] = ('pearson_correlation_first',)
     param_names: Sequence[str] = ()
+    # Whether ``forward`` reads ``input_dict['input_1']`` alone: a decoder
+    # may then compute one prediction for every input_2 stream it scores.
+    reads_input_1_only = False
 
     def __init__(self, device, tensorboard_dir: Optional[str] = None):
         super().__init__()
@@ -323,6 +326,7 @@ class BrainModelLinearRegression(BrainModel):
     loss_name = 'mse'
     metric_names = ('pearson_correlation_first',)
     param_names = ('w', 'b')
+    reads_input_1_only = True
 
     def __init__(self, input_dataset=None, regularization_lambda: float = 0.0,
                  tensorboard_dir: Optional[str] = None,
@@ -725,6 +729,7 @@ class BrainModelDNN(_SgdModel):
 
     loss_name = 'mse'
     metric_names = ('pearson_correlation_first', 'mse')
+    reads_input_1_only = True
 
     def __init__(self, input_dataset=None, num_hidden_list=None,
                  tensorboard_dir=None, input_width=None, output_width=None,

@@ -16,7 +16,8 @@ and ``GRAPH_CAPTURES`` for the decoder's resident push plans,
 decode/push_plan.py, and ``DEVICE_STACKS`` for decoder calls that
 stack raw context windows on the card; ``TOWER_PASSES`` for a deep CCA
 decoder's tower passes and ``FUSED_TOWER_PASSES`` for those that ran
-kernel T1), ``recorded()`` and ``reset()``. It records while a
+kernel T1; ``PREDICT_PASSES`` for a regression decoder's forward
+passes), ``recorded()`` and ``reset()``. It records while a
 torch profiler runs, and only then: ``torch.profiler.profile`` (the
 benchmark's traced slice) or ``trace`` (an operator's ``--trace_dir``).
 Off, a span costs one read of torch's own flag and hands back a shared
@@ -56,6 +57,10 @@ FUSED_TOWER_PASSES = 'decoder.fused_tower_passes'
 # Decoder calls whose raw context windows were lag-stacked on the card
 # (one a call, with or without a push plan).
 DEVICE_STACKS = 'decoder.device_stacks'
+# The model's forward passes in a served call without kernel K1 (one a
+# call where the prediction reads input_1 alone, else one a stream), eager
+# or inside a push plan's graph.
+PREDICT_PASSES = 'decoder.predict_passes'
 DROPPED = 'dropped'
 CAP = 1 << 20
 _clock = time.time_ns

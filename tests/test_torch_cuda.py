@@ -23,7 +23,9 @@ window form: bit for bit (the same device function on the same inputs).
 The decoder's resident push plan against the decoder's path without it:
 bit for bit (K1's launch on the same inputs and operands; a deep CCA's
 towers, the same launch of T1, or the same products, bias adds and ReLUs,
-captured in the graph). T1, the deep CCA's towers in one launch, against
+captured in the graph; a regression decoder's prediction, correlations
+and LDA, the same products and elementwise kernels on the same staged
+inputs). T1, the deep CCA's towers in one launch, against
 its plain version: rtol 1e-5 / atol 1e-5 (TOWER_TOL: float32 sums in
 another order); against itself, bit for bit (no atomics).
 """
@@ -1405,3 +1407,144 @@ def test_push_plan_raw_windows_equal_host_stacks(cuda, profiled, widths):
         _assert_same_bits(decoder.infer_pair(*stacked), _todays_scores(
             decoder, stacked))
     assert len(decoder._push_plans) == 2
+
+
+# -- a regression decoder's push plan: the envelopes staged beside the frames
+
+# The toolbox's default fullyconnected regressor at codelab widths: 69
+# EEG channels lagged 0..36 (2553 columns) -> 20 -> 20 -> 1, audio of no
+# context, 32-row pushes.
+DNN_PLAN = (69, 0, 36, [20, 20], 32)
+
+
+def _regression_plan_decoder(cuda, kind, f1, hidden, seed):
+    """A served regression decoder with the LDA reduction (D 1) from
+    seeded weights: the DNN (He-scaled weights, biases N(0, 0.01)), or a
+    linear regressor; as the benchmark's DNN cell builds it."""
+    from telluride_decoding_torch.decode.infer_decoder import (
+        LinearRegressionDecoder)
+    from telluride_decoding_torch.models.brain_model import (
+        BrainModelDNN, BrainModelLinearRegression)
+    rng = np.random.RandomState(seed)
+    widths = [f1] + (hidden if kind == 'dnn' else []) + [1]
+    flat = {}
+    for i in range(len(widths) - 1):
+        flat['layers/%d/w' % i] = rng.randn(
+            widths[i], widths[i + 1]) * np.sqrt(2.0 / widths[i])
+        flat['layers/%d/b' % i] = 0.1 * rng.randn(widths[i + 1])
+    if kind == 'dnn':
+        model = BrainModelDNN.from_numpy(flat, cuda, config={
+            'num_hidden_list': hidden, 'input_width': f1, 'output_width': 1,
+            'dropout': 0.0, 'batch_norm': False})
+    else:
+        model = BrainModelLinearRegression.from_numpy(
+            {'w': flat['layers/0/w'], 'b': flat['layers/0/b']}, cuda)
+    decoder = LinearRegressionDecoder(model, reduction='lda', device=cuda)
+    decoder.model_params = _plan_params(rng, 1)
+    return decoder
+
+
+def _regression_push(rng, rows, channels, pre, post, raw):
+    """A push's arguments: the EEG (raw windows of its lags, or stacked
+    rows), two audio streams of no context, and the two envelopes."""
+    from telluride_decoding_torch.ops.lagstack import LagRows
+    eeg = rng.randn(pre + rows + post, channels).astype(np.float32)
+    eeg = (LagRows(eeg, pre, post) if raw else
+           np.asarray(LagRows(eeg, pre, post)))
+    audio = [np.abs(rng.randn(rows, 1)).astype(np.float32)
+             for _ in range(2)]
+    streams = [LagRows(a, 0, 0) for a in audio] if raw else audio
+    return (eeg, *streams, *audio)
+
+
+def _predict_passes():
+    from telluride_decoding_torch.utils import profiling
+    return profiling.recorded().counters.get(profiling.PREDICT_PASSES, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('raw', [False, True])
+@pytest.mark.parametrize('kind', ['dnn', 'linear'])
+def test_push_plan_regression_scores_equal_todays_path(cuda, profiled, kind,
+                                                       raw):
+    """A regression decoder at codelab widths rides the plan: the two
+    first sights take the path without a plan (seven host waits: three
+    frame blocks and two envelopes in, two reads), the second full push
+    captures, every later one replays with one wait; one prediction a
+    push, no K1, and the scores are the same bits as the eager route."""
+    channels, pre, post, hidden, rows = DNN_PLAN
+    decoder = _regression_plan_decoder(cuda, kind, channels * (pre + 1 +
+                                                               post),
+                                       hidden, seed=8)
+    rng = np.random.RandomState(1)
+    for push in range(102):
+        args = _regression_push(rng, rows - 3 if push == 0 else rows,
+                                channels, pre, post, raw)
+        want = _todays_scores(decoder, [np.asarray(a) for a in args])
+        passes = _predict_passes()
+        got, counts = _counted_push(decoder, args)
+        _assert_same_bits(got, want)
+        assert _predict_passes() - passes == 1, push
+        assert counts == {0: (0, 0, 0, 7), 1: (0, 0, 0, 7),
+                          2: (0, 1, 1, 1)}.get(push, (0, 1, 0, 1)), push
+    (key,) = decoder._push_plans._plans
+    assert key[2:] == (((pre, post) if raw else (0, 0), (0, 0), (0, 0)),
+                       (channels * (pre + 1 + post), 1, 1))
+
+
+@pytest.mark.cuda
+def test_push_plan_regression_after_a_refit_mid_stream(cuda, profiled):
+    """New DNN weights mid-stream (``set_params``): a new key, whose
+    first push takes the path without a plan and whose second captures;
+    the scores are the new weights' bits, never the old graph's."""
+    channels, pre, post, hidden, rows = DNN_PLAN
+    f1 = channels * (pre + 1 + post)
+    decoder = _regression_plan_decoder(cuda, 'dnn', f1, hidden, seed=3)
+    rng = np.random.RandomState(2)
+    for _ in range(3):
+        _counted_push(decoder, _regression_push(rng, rows, channels, pre,
+                                                post, True))
+    args = _regression_push(rng, rows, channels, pre, post, True)
+    old, counts = _counted_push(decoder, args)
+    assert counts == (0, 1, 0, 1)
+    fresh = _regression_plan_decoder(cuda, 'dnn', f1, hidden, seed=9)
+    decoder.decoding_model.set_params(
+        {k: v.clone() for k, v in fresh.decoding_model.params.items()})
+    for push in range(4):
+        want = _todays_scores(decoder, [np.asarray(a) for a in args])
+        got, counts = _counted_push(decoder, args)
+        _assert_same_bits(got, want)
+        assert not np.array_equal(got[0], old[0])
+        assert counts == [(0, 0, 0, 7), (0, 1, 1, 1), (0, 1, 0, 1),
+                          (0, 1, 0, 1)][push], push
+    assert len(decoder._push_plans) == 2
+
+
+@pytest.mark.cuda
+def test_push_plan_regression_after_an_eviction(cuda, profiled):
+    """Five push lengths, so five keys, through the LRU of four: the
+    first key's plan is evicted, its next push is a first sight again
+    (the path without a plan), the one after captures anew; the scores
+    stay the eager route's bits throughout."""
+    from telluride_decoding_torch.decode import push_plan
+    channels, pre, post, hidden, rows = DNN_PLAN
+    decoder = _regression_plan_decoder(
+        cuda, 'dnn', channels * (pre + 1 + post), hidden, seed=5)
+    rng = np.random.RandomState(4)
+    lengths = [rows - i for i in range(push_plan.PushPlans.SIZE + 1)]
+    for length in lengths:
+        for push in range(3):
+            args = _regression_push(rng, length, channels, pre, post, True)
+            want = _todays_scores(decoder, [np.asarray(a) for a in args])
+            got, counts = _counted_push(decoder, args)
+            _assert_same_bits(got, want)
+            assert counts[1:3] == [(0, 0), (1, 1), (1, 0)][push], (length,
+                                                                   push)
+    assert len(decoder._push_plans) == push_plan.PushPlans.SIZE
+    assert rows not in [key[1] for key in decoder._push_plans._plans]
+    for push in range(3):
+        args = _regression_push(rng, rows, channels, pre, post, True)
+        want = _todays_scores(decoder, [np.asarray(a) for a in args])
+        got, counts = _counted_push(decoder, args)
+        _assert_same_bits(got, want)
+        assert counts == [(0, 0, 0, 7), (0, 1, 1, 1), (0, 1, 0, 1)][push]

@@ -7,7 +7,9 @@ A decoder built on the CPU and then pointed at a CUDA device (its
 pipeline already built, so nothing is moved) shows the selection rule
 without a card: only a CCA or deep CCA model with the LDA reduction and
 numpy inputs or raw windows of the model's widths get a plan key (a
-deep CCA's plan runs its towers too: tests/test_torch_dcca_serving.py).
+deep CCA's plan runs its towers too: tests/test_torch_dcca_serving.py),
+and a regression decoder given its two envelopes
+(tests/test_torch_dnn_serving.py).
 A stand-in plan takes what the decoder hands a plan: the function it
 captures runs here on CPU tensors of the frames a plan stages.
 """
