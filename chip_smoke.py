@@ -221,6 +221,8 @@ T1_SYMBOL = 'dcca_towers_kernel'               # T1, the deep CCA's towers.
 T1_TOL = dict(rtol=1e-5, atol=1e-5)            # T1 vs plain: sums reordered.
 T1_HIDDEN = [128, 64]                          # The codelab DCCA's towers.
 DNN_HIDDEN = [20, 20]                          # The toolbox's default DNN.
+R1_SYMBOL = 'regression_push_kernel'           # R1, a regression push.
+R1_TOL = dict(rtol=1e-5, atol=1e-5)            # R1 vs plain: sums reordered.
 # Phase 11: the state-space decoder (kernel S1) and the infer sweep. The
 # infer corpus: train files attending speaker 1, a test file whose
 # attention switches every INFER_SEGMENT frames (three switches).
@@ -985,6 +987,148 @@ def phase_towers(torch, device):
     return timed
 
 
+def regression_decoder(torch, device, f1, hidden, seed):
+    """A LinearRegressionDecoder with the LDA reduction on ``device``:
+    the fullyconnected regressor f1 -> hidden -> 1 (weights N(0, 2 /
+    fan_in), biases N(0, 0.01); with no hidden layer the linear
+    regressor) and seeded statistics, as the benchmark's DNN cell draws
+    them."""
+    from telluride_decoding_torch.decode.infer_decoder import (
+        CorrelationParamsTuple, LinearRegressionDecoder, ModelParamsTuple)
+    from telluride_decoding_torch.models.brain_model import (
+        BrainModelDNN, BrainModelLinearRegression)
+    from telluride_decoding_torch.solvers.lda import LdaParams
+    rng = np.random.RandomState(seed)
+    widths = [f1] + hidden + [1]
+    flat = {}
+    for i in range(len(widths) - 1):
+        flat['layers/%d/w' % i] = rng.randn(
+            widths[i], widths[i + 1]) * np.sqrt(2.0 / widths[i])
+        flat['layers/%d/b' % i] = 0.1 * rng.randn(widths[i + 1])
+    if hidden:
+        model = BrainModelDNN.from_numpy(flat, device, config={
+            'num_hidden_list': hidden, 'input_width': f1,
+            'output_width': 1, 'dropout': 0.0, 'batch_norm': False})
+    else:
+        model = BrainModelLinearRegression.from_numpy(
+            {'w': flat['layers/0/w'], 'b': flat['layers/0/b']}, device)
+    decoder = LinearRegressionDecoder(model, reduction='lda', device=device)
+    one = np.ones(1)
+    decoder.model_params = ModelParamsTuple(
+        CorrelationParamsTuple(1, one, one, one, one, 0.1 * rng.randn(1),
+                               0.1 * rng.randn(1), 1.0 + rng.rand(1)),
+        LdaParams(rng.randn(1, 1), np.zeros((1, 1)), np.array([0, 1]),
+                  np.zeros((2, 1)), 0.1, 0.5))
+    return decoder
+
+
+def regression_bound(rows, f1, hidden):
+    """(ms, 'bytes' or 'operations') of a served pair's regression
+    composition by the plain algorithm (portbench/harness/flops_dnn.py's
+    count): the prediction once, each weight and bias read once, the rows
+    read and each layer's output written once; each talker's envelope and
+    the prediction read and one score a frame written; a multiply-add two
+    operations, a bias add, a ReLU, a subtraction, a product and a
+    division one each."""
+    sizes = [f1] + hidden + [1]
+    layers = list(zip(sizes[:-1], sizes[1:]))
+    num_bytes = 4 * (sum(i * o + o for i, o in layers) + rows * sum(sizes) +
+                     2 * rows * 3)
+    flops = (rows * (sum(2 * i * o + o for i, o in layers) + sum(hidden)) +
+             2 * rows * 8)
+    return bound(num_bytes, flops)
+
+
+def phase_regression(torch, device):
+    """R1 (a regression push's prediction, correlations and LDA in one
+    launch) against its plain version at the served widths: codelab and
+    KULeuven inputs (2553 and 1408), the DNN 20 -> 20 -> 1 and the linear
+    regressor, 1 to 64 rows, one and two talkers; a second call gives the
+    same bits. At the served pair (32 rows, two talkers, the DNN at 2553):
+    the call's time (CUDA events), its host time, R1's device time, the
+    plain version's time, the decoder's route without R1 as the port
+    served it before (library_ms: the model's cuBLAS stack and
+    correlate_reduce, and its device time), and the bound."""
+    from telluride_decoding_torch import kernels
+    from telluride_decoding_torch.ops import regression_push
+    f1 = IN1_CHANNELS * (PRE + 1 + POST)
+    f1_kul = KULEUVEN['channels'] * (KULEUVEN['contexts'][1] + 1)
+    gen = torch.Generator(device=device).manual_seed(26)
+    worst = 0.0
+    for width in (f1, f1_kul):
+        for hidden in (DNN_HIDDEN, []):
+            decoder = regression_decoder(torch, device, width, hidden,
+                                         seed=width + len(hidden))
+            weights = decoder._current_pipeline().regression
+            for rows in (1, 16, 29, SERVE_ROWS, regression_push.MAX_ROWS):
+                x1 = torch.randn((rows, width), generator=gen, device=device)
+                ys = [torch.rand((rows, 1), generator=gen, device=device)
+                      for _ in range(2)]
+                for streams in (1, 2):
+                    got = regression_push.regression_push(weights, x1,
+                                                          ys[:streams])
+                    again = regression_push.regression_push(weights, x1,
+                                                            ys[:streams])
+                    want = regression_push.regression_push_reference(
+                        weights, x1, ys[:streams])
+                    what = 'regression_push %d -> %s -> 1, %d x %d rows' % (
+                        width, hidden, streams, rows)
+                    worst = max(worst, require_close(torch, what, got, want,
+                                                     R1_TOL))
+                    if not torch.equal(again, got):
+                        raise AssertionError('%s: a second call gave other '
+                                             'bits' % what)
+    decoder = regression_decoder(torch, device, f1, DNN_HIDDEN, seed=f1)
+    pipeline = decoder._current_pipeline()
+    weights = pipeline.regression
+    x1 = torch.randn((SERVE_ROWS, f1), generator=gen, device=device)
+    ys = [torch.rand((SERVE_ROWS, 1), generator=gen, device=device)
+          for _ in range(2)]
+
+    def call():
+        return regression_push.regression_push(weights, x1, ys)
+
+    def library():
+        with torch.no_grad():
+            prediction = decoder.decoding_model({'input_1': x1})
+            return torch.stack([pipeline.correlate_reduce(y, prediction)
+                                for y in ys])
+    ms, plain_ms = interleaved_ms(
+        torch, call,
+        lambda: regression_push.regression_push_reference(weights, x1, ys))
+    library_ms = time_ms(torch, library)
+    library_busy = device_busy(torch, lambda: [library() for _ in range(10)])
+    limit, limited_by = regression_bound(SERVE_ROWS, f1, DNN_HIDDEN)
+    on_device = device_ms(torch, call, R1_SYMBOL)
+    plan = weights.plan(SERVE_ROWS, 2, 1)
+    timed = dict(
+        rows=SERVE_ROWS, f1=f1, hidden=DNN_HIDDEN, out=1, talkers=2,
+        cluster=plan.cluster, slice=plan.slice, ms=ms,
+        host_ms=host_ms(torch, call), device_ms=on_device, plain_ms=plain_ms,
+        library_ms=library_ms,
+        library_device_ms=(None if library_busy[1] is None else
+                           library_busy[1] / 10 * 1e3),
+        bound_ms=limit, bound_by=limited_by,
+        share=None if on_device is None else limit / on_device,
+        max_abs_err=worst)
+    log('phase 3d regression_push (R1): matches plain within %s at %d and '
+        '%d inputs, the DNN %s and the linear regressor, 1 to %d rows, one '
+        'and two talkers, the same bits twice; max abs err %.3g'
+        % (R1_TOL, f1, f1_kul, DNN_HIDDEN, regression_push.MAX_ROWS, worst))
+    log('phase 3d regression_push served pair (%d rows of %d, %s -> 1, two '
+        'talkers; a cluster of %d, slices of %d): call %.4f ms, host %.4f '
+        'ms, on the device %s, plain %.4f ms, the model\'s cuBLAS stack and '
+        'correlate_reduce (library) %.4f ms and %s on the device, bound '
+        '%.5f ms (%s), share %s; launches so far %d'
+        % (SERVE_ROWS, f1, DNN_HIDDEN, plan.cluster, plan.slice, ms,
+           timed['host_ms'], fmt_ms(on_device), plain_ms, library_ms,
+           fmt_ms(timed['library_device_ms']), limit, limited_by,
+           'not measured' if on_device is None else
+           '%.1f%%' % (100 * limit / on_device),
+           kernels.launches['regression_push']))
+    return timed
+
+
 def phase_dnn_plan(torch, device):
     """The toolbox's default decoder, the fullyconnected DNN regressor
     (2553 -> 20 -> 20 -> 1, LDA), served a pair at a time on the push
@@ -997,30 +1141,11 @@ def phase_dnn_plan(torch, device):
     composition, two reads), in the order plan, eager, eager, plan, and
     the card's busy time a plan push."""
     from torch.profiler import ProfilerActivity, profile
-    from telluride_decoding_torch.decode.infer_decoder import (
-        CorrelationParamsTuple, LinearRegressionDecoder, ModelParamsTuple)
-    from telluride_decoding_torch.models.brain_model import BrainModelDNN
     from telluride_decoding_torch.ops.lagstack import LagRows
-    from telluride_decoding_torch.solvers.lda import LdaParams
     from telluride_decoding_torch.utils import profiling
     f1 = IN1_CHANNELS * (PRE + 1 + POST)
-    rng = np.random.RandomState(25)
-    widths = [f1] + DNN_HIDDEN + [1]
-    flat = {}
-    for i in range(len(widths) - 1):
-        flat['layers/%d/w' % i] = rng.randn(
-            widths[i], widths[i + 1]) * np.sqrt(2.0 / widths[i])
-        flat['layers/%d/b' % i] = 0.1 * rng.randn(widths[i + 1])
-    model = BrainModelDNN.from_numpy(flat, device, config={
-        'num_hidden_list': DNN_HIDDEN, 'input_width': f1, 'output_width': 1,
-        'dropout': 0.0, 'batch_norm': False})
-    decoder = LinearRegressionDecoder(model, reduction='lda', device=device)
-    one = np.ones(1)
-    decoder.model_params = ModelParamsTuple(
-        CorrelationParamsTuple(1, one, one, one, one, 0.1 * rng.randn(1),
-                               0.1 * rng.randn(1), 1.0 + rng.rand(1)),
-        LdaParams(rng.randn(1, 1), np.zeros((1, 1)), np.array([0, 1]),
-                  np.zeros((2, 1)), 0.1, 0.5))
+    decoder = regression_decoder(torch, device, f1, DNN_HIDDEN, seed=25)
+    rng = np.random.RandomState(26)
 
     def push_args():
         audio = [np.abs(rng.randn(SERVE_ROWS, 1)).astype(np.float32)
@@ -1052,8 +1177,9 @@ def phase_dnn_plan(torch, device):
         counters = profiling.recorded().counters
     finally:
         profiling.reset()
-    # Two calls a push: the pair and its eager check.
-    if counters.get(profiling.PREDICT_PASSES) != 2 * len(pushes):
+    # Two calls a push: the pair and its eager check, each through R1.
+    if not (counters.get(profiling.PREDICT_PASSES) ==
+            counters.get(profiling.FUSED_PREDICT_PASSES) == 2 * len(pushes)):
         raise AssertionError('predictions: %s' % counters)
     args = pushes[-1]
 
@@ -1357,7 +1483,7 @@ def check_against_plain(decisions, model_dir, stream,
 def reset_launches():
     from telluride_decoding_torch import kernels
     names = ('fused_cca_decode', 'lag_stack', 'fused_envelope_lagstack',
-             'ssd_update', 'ssd_sequence', 'dcca_towers')
+             'ssd_update', 'ssd_sequence', 'dcca_towers', 'regression_push')
     kernels.launches.clear()
     return lambda: {name: kernels.launches[name] for name in names}
 
@@ -5207,6 +5333,7 @@ def main():
     k1 = phase_decode(torch, device)
     t1 = phase_towers(torch, device)
     phase_dnn_plan(torch, device)
+    r1 = phase_regression(torch, device)
     codelab = phase_slice(torch, device, smi)
     k3 = phase_frontend(torch, device)
     phase_sosfilt(torch, device)
@@ -5225,9 +5352,9 @@ def main():
                 sweep[name] + cohort[name] + attention[name] +
                 raw_ingest[name] + model_files[name] + sgd[name] + aot[name]
                 + several[name] + walkthrough[name] for name in kuleuven}
-    log('K1, K2 and T1 launches by phase: ' + json.dumps({
+    log('K1, K2, T1 and R1 launches by phase: ' + json.dumps({
         name: [phase['fused_cca_decode'], phase['lag_stack'],
-               phase['dcca_towers']]
+               phase['dcca_towers'], phase['regression_push']]
         for name, phase in (
             ('4 codelab', codelab), ('7 KULeuven', kuleuven),
             ('8 decoding', decoding), ('9 sweep', sweep),
@@ -5255,6 +5382,14 @@ def main():
                       '198); T1 takes the place of the port\'s cuBLAS '
                       'products, bias adds and ReLUs',
              launches=launches['dcca_towers'], **dict(common, **t1)),
+        dict(name='regression_push',
+             source='telluride_decoding_torch/csrc/regression_push.cu',
+             replaces='none: the JAX package\'s regression prediction, '
+                      'correlations and LDA are XLA ops (telluride_decoding_'
+                      'tpu/models/brain_model.py:842, decode/infer_decoder.py'
+                      ':311); R1 takes the place of the port\'s cuBLAS '
+                      'products and elementwise kernels',
+             launches=launches['regression_push'], **dict(common, **r1)),
         dict(name='fused_envelope_lagstack',
              source='telluride_decoding_torch/csrc/fused_frontend.cu',
              replaces='telluride_decoding_tpu/ops/fused_frontend.py:157',

@@ -21,9 +21,11 @@ its K1 launch covers every frame of the split. The other reductions, and
 the regression decoders, run as plain torch, as ``_reduce`` does in the
 JAX package: a regression model whose prediction reads input_1 alone
 (the linear and fullyconnected regressors) predicts once a call, and
-each talker's envelope is correlated with that prediction; such a
-decoder's pushes ride a push plan too, its envelopes staged beside the
-frames.
+each talker's envelope is correlated with that prediction (a served
+chunk's prediction, correlations and LDA in one launch of kernel R1
+where the prediction is a dense ReLU stack and the reduction 'lda');
+such a decoder's pushes ride a push plan too, its envelopes staged
+beside the frames.
 
 ``decoder_model.json`` stays wire-compatible with the JAX package and the
 reference: the same ModelParams namedtuple structure, complex arrays
@@ -52,6 +54,8 @@ from telluride_decoding_torch.ops.decode_kernel import (FoldedDecode,
                                                         kernel_operands,
                                                         prepared_operands)
 from telluride_decoding_torch.ops.lagstack import LagRows, lag_stack
+from telluride_decoding_torch.ops.regression_push import (RegressionWeights,
+                                                          regression_push)
 from telluride_decoding_torch.solvers import lda as scaled_lda
 from telluride_decoding_torch.utils import profiling
 
@@ -99,12 +103,17 @@ def _reduce(correlations: torch.Tensor, reduction: str,
 
 
 class _Pipeline(collections.namedtuple(
-        '_Pipeline', ['folded', 'towers', 'correlate_reduce'])):
+        '_Pipeline', ['folded', 'towers', 'correlate_reduce',
+                      'regression'])):
     """What a decoder serves with, built from the current model and
     statistics: ``folded`` (kernel K1's parameters) and ``towers`` (a
     deep CCA model's ``Decoder._towers()``, which holds the weights it
     reads, or None) when the fused decode applies, else None and None
-    and ``correlate_reduce(r1, r2)`` in plain torch."""
+    and ``correlate_reduce(r1, r2)`` in plain torch; and ``regression``,
+    a regression decoder's layers, statistics and LDA for kernel R1
+    (``RegressionWeights``, packed once on the card) where its
+    prediction is a dense ReLU stack and the reduction 'lda', else
+    None."""
 
 
 def _frames(value):
@@ -136,7 +145,8 @@ class PairProgram(torch.nn.Module):
     ``tdt::fused_cca_decode_f32``
     (kernel K1 on the card) over both streams, on K1's operands held as
     buffers; otherwise ``_decode_tensors`` and ``correlate_reduce`` per
-    stream in plain torch.
+    stream in plain torch (the model's stack: never kernel R1, for the
+    same reason).
     """
 
     def __init__(self, decoder: 'Decoder'):
@@ -145,7 +155,9 @@ class PairProgram(torch.nn.Module):
         # A submodule, so the model's buffers are the program's.
         self.model = decoder.decoding_model
         self._dims = 0
-        folded, towers, self._correlate_reduce = decoder._build_pipeline()
+        pipeline = decoder._build_pipeline()
+        folded, towers = pipeline.folded, pipeline.towers
+        self._correlate_reduce = pipeline.correlate_reduce
         self._towers = None if towers is None else towers.plain
         if folded is not None:
             self._dims = int(folded.rot1.shape[1])
@@ -442,15 +454,34 @@ class Decoder:
             lda_intercept = self._tensor(self._lda.intercept)
             folded = self._fold(mean_x, mean_y, power, lda_w, lda_slope,
                                 lda_intercept)
+            regression = (None if folded is not None else
+                          self._regression(mean_x, mean_y, power, lda_w,
+                                           lda_slope, lda_intercept))
         else:
             lda_w, lda_slope, lda_intercept, folded = None, 0.0, 0.0, None
+            regression = None
 
         def correlate_reduce(r1, r2):
             correlations = (r1 - mean_x) * (r2 - mean_y) / power
             return _reduce(correlations, reduction, lda_w, lda_slope,
                            lda_intercept)
         return _Pipeline(folded, None if folded is None else self._towers(),
-                         correlate_reduce)
+                         correlate_reduce, regression)
+
+    def _regression(self, mean_x, mean_y, power, lda_w, lda_slope,
+                    lda_intercept) -> Optional[RegressionWeights]:
+        """Kernel R1's layers and statistics where it applies (a
+        regression decoder with the LDA reduction); None here."""
+        del mean_x, mean_y, power, lda_w, lda_slope, lda_intercept
+        return None
+
+    @staticmethod
+    def _fused_prediction(pipeline: _Pipeline, rows: int) -> bool:
+        """Whether a call of ``rows`` rows without K1 runs kernel R1:
+        the pipeline's layers are packed on the card and R1 takes the
+        rows."""
+        return (pipeline.regression is not None
+                and pipeline.regression.launches(rows))
 
     def _current_pipeline(self) -> _Pipeline:
         """The cached pipeline, built anew when the model was refit or
@@ -479,11 +510,17 @@ class Decoder:
         or, for a pipeline without K1, the model's predictions
         (``_decode_streams``) and ``correlate_reduce`` against each
         stream's output, ``outputs`` on this decoder's device: [streams,
-        rows] (or [streams, rows, D] for 'all')."""
+        rows] (or [streams, rows, D] for 'all'); where
+        ``_fused_prediction`` holds, kernel R1 computes that in one
+        launch (span ``decoder.predict``)."""
         x1, *x2s = (lag_stack(x, 0, pre + post)[:len(x) - pre - post]
                     if pre + post else x
                     for x, (pre, post) in zip(frames, lags))
         if pipeline.folded is None:
+            if self._fused_prediction(pipeline, len(x1)):
+                with profiling.span('decoder.predict'):
+                    return regression_push(pipeline.regression, x1,
+                                           outputs)
             return torch.stack([
                 pipeline.correlate_reduce(r1, r2)
                 for r1, r2 in self._decode_streams(x1, x2s, outputs)])
@@ -522,11 +559,14 @@ class Decoder:
         """Counts what one call of ``rows`` rows a stream served, while a
         profiler runs: a deep CCA model's tower passes, one a stream, and
         those of them that ran kernel T1 (towers that tell, by ``fused``);
-        without K1, the model's forward passes; on the card, one device
-        stack where a stream had context."""
+        without K1, the model's forward passes, and those of them that
+        ran kernel R1; on the card, one device stack where a stream had
+        context."""
         if pipeline.folded is None:
-            profiling.count(profiling.PREDICT_PASSES,
-                            1 if self._shares_prediction() else len(lags) - 1)
+            passes = 1 if self._shares_prediction() else len(lags) - 1
+            profiling.count(profiling.PREDICT_PASSES, passes)
+            if self._fused_prediction(pipeline, rows):
+                profiling.count(profiling.FUSED_PREDICT_PASSES, passes)
         towers = pipeline.towers
         if towers is not None:
             profiling.count(profiling.TOWER_PASSES, len(lags))
@@ -851,11 +891,32 @@ class LinearRegressionDecoder(Decoder):
     stream; a model that reads input_2 too (the classifier) once a
     stream. On the card a synchronous push of host arrays or raw windows
     with a reduction of one score a frame rides a push plan, which
-    stages the two envelopes beside the frames."""
+    stages the two envelopes beside the frames.
+
+    Where the model's prediction is a dense ReLU stack (its
+    ``dense_layers()``: the fullyconnected regressor without batch norm,
+    the linear regressor) and the reduction 'lda', the pipeline packs
+    its layers, the statistics and the LDA for kernel R1 once
+    (``ops/regression_push.py``); a call of at most
+    ``regression_push.MAX_ROWS`` rows on the card is then one launch of
+    R1 for every stream. Every other call (the CPU, whole test splits,
+    batch norm, the classifier, other reductions, wider layers, the AOT
+    ``PairProgram``) runs the model's stack and ``correlate_reduce``."""
 
     def _shares_prediction(self):
         return bool(getattr(self._decoding_model, 'reads_input_1_only',
                             False))
+
+    def _regression(self, mean_x, mean_y, power, lda_w, lda_slope,
+                    lda_intercept):
+        """R1's RegressionWeights of the model's ``dense_layers()``,
+        where its prediction is such a stack (of input_1 alone)."""
+        dense_layers = getattr(self._decoding_model, 'dense_layers', None)
+        layers = None if dense_layers is None else dense_layers()
+        if layers is None:
+            return None
+        return RegressionWeights(layers, mean_x, mean_y, power, lda_w,
+                                 lda_slope, lda_intercept)
 
     def _decode_streams(self, x1, x2s, outputs):
         """One prediction for every stream's output, where the model's

@@ -136,6 +136,8 @@ def library() -> ctypes.CDLL:
         lib.tdt_ssd_sequence.restype = _INT
         lib.tdt_dcca_towers.argtypes = [_VOID_P] * 10
         lib.tdt_dcca_towers.restype = _INT
+        lib.tdt_regression_push.argtypes = [_VOID_P] * 7
+        lib.tdt_regression_push.restype = _INT
         lib.tdt_error_string.argtypes = [_INT]
         lib.tdt_error_string.restype = ctypes.c_char_p
         _lib = lib

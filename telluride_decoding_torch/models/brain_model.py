@@ -110,6 +110,14 @@ class BrainModel(torch.nn.Module):
             return None
         return values
 
+    def dense_layers(self) -> Optional[Tuple[Tuple[torch.Tensor,
+                                                   torch.Tensor], ...]]:
+        """The prediction's layers, ((w [in, out], b [out]), ...), where
+        ``forward`` is ``x @ w + b`` through them with a ReLU between two
+        layers and nothing else (what kernel R1 computes); None for any
+        other model, and before a fit or load."""
+        return None
+
     def set_params(self, values: Dict[str, torch.Tensor]):
         for name in self.param_names:
             setattr(self, name, values[name].to(self.device, torch.float32))
@@ -353,6 +361,10 @@ class BrainModelLinearRegression(BrainModel):
         from telluride_decoding_torch.models.convert import (
             linear_params_from_numpy)
         return linear_params_from_numpy(flat, device, config)
+
+    def dense_layers(self):
+        """One layer, (w, b)."""
+        return None if self.params is None else ((self.w, self.b),)
 
     def forward(self, input_dict) -> torch.Tensor:
         """[N, Dx] -> [N, Dy]: x @ w + b, in float32."""
@@ -826,6 +838,15 @@ class BrainModelDNN(_SgdModel):
                 x = torch.where(keep, x / (1.0 - self._dropout),
                                 torch.zeros_like(x))
         return (x, stats) if collect_stats else x
+
+    def dense_layers(self):
+        """Every layer's (w, b) without batch norm (dropout acts in
+        training only); None with it."""
+        if self._batch_norm or self.params is None:
+            return None
+        return tuple((self.params['layers/%d/w' % i],
+                      self.params['layers/%d/b' % i])
+                     for i in range(len(self._widths()) - 1))
 
     def forward(self, input_dict) -> torch.Tensor:
         return self._forward(self._require_params(),

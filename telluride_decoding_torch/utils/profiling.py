@@ -17,7 +17,8 @@ decode/push_plan.py, and ``DEVICE_STACKS`` for decoder calls that
 stack raw context windows on the card; ``TOWER_PASSES`` for a deep CCA
 decoder's tower passes and ``FUSED_TOWER_PASSES`` for those that ran
 kernel T1; ``PREDICT_PASSES`` for a regression decoder's forward
-passes), ``recorded()`` and ``reset()``. It records while a
+passes and ``FUSED_PREDICT_PASSES`` for those that ran kernel R1),
+``recorded()`` and ``reset()``. It records while a
 torch profiler runs, and only then: ``torch.profiler.profile`` (the
 benchmark's traced slice) or ``trace`` (an operator's ``--trace_dir``).
 Off, a span costs one read of torch's own flag and hands back a shared
@@ -61,6 +62,9 @@ DEVICE_STACKS = 'decoder.device_stacks'
 # call where the prediction reads input_1 alone, else one a stream), eager
 # or inside a push plan's graph.
 PREDICT_PASSES = 'decoder.predict_passes'
+# Those of them that ran kernel R1 (ops/regression_push.py), replays
+# included.
+FUSED_PREDICT_PASSES = 'decoder.fused_predict_passes'
 DROPPED = 'dropped'
 CAP = 1 << 20
 _clock = time.time_ns

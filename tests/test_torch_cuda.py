@@ -25,9 +25,13 @@ bit for bit (K1's launch on the same inputs and operands; a deep CCA's
 towers, the same launch of T1, or the same products, bias adds and ReLUs,
 captured in the graph; a regression decoder's prediction, correlations
 and LDA, the same products and elementwise kernels on the same staged
-inputs). T1, the deep CCA's towers in one launch, against
-its plain version: rtol 1e-5 / atol 1e-5 (TOWER_TOL: float32 sums in
-another order); against itself, bit for bit (no atomics).
+inputs; from R1's limits on, its one launch). T1, the deep CCA's towers
+in one launch, against its plain version: rtol 1e-5 / atol 1e-5
+(TOWER_TOL: float32 sums in another order); against itself, bit for bit
+(no atomics). R1, a regression decoder's prediction, correlations and LDA
+in one launch, against the model's stack and ``correlate_reduce`` on the
+card: rtol 1e-5 / atol 1e-5 on the scores (REGRESSION_TOL, for the same
+reason); against itself, bit for bit.
 """
 
 import numpy as np
@@ -1548,3 +1552,128 @@ def test_push_plan_regression_after_an_eviction(cuda, profiled):
         got, counts = _counted_push(decoder, args)
         _assert_same_bits(got, want)
         assert counts == [(0, 0, 0, 7), (0, 1, 1, 1), (0, 1, 0, 1)][push]
+
+
+# R1 against the model's stack (cuBLAS float32 products, bias adds, ReLUs,
+# then correlate_reduce): the first layer's sums of up to 2553 inputs run
+# in another order (16 slices, then k-groups), moving the prediction by a
+# few float32 roundings and a score (0.1 of a correlation, plus 0.5) by
+# about 1e-7; a product in TF32 or a dropped ReLU moves it by 1e-4 or more.
+REGRESSION_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _regression_weights(decoder):
+    return decoder._current_pipeline().regression
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['dnn', 'linear'])
+@pytest.mark.parametrize('f1', [2553, 1408])          # codelab, KULeuven
+@pytest.mark.parametrize('rows', [1, 16, 29, 32, 64])
+def test_regression_push_matches_the_models_stack(cuda, kind, f1, rows):
+    """R1 against the model's stack and the decoder's correlate_reduce at
+    the served widths (69 x 37 and 64 x 22 lagged EEG; the DNN 20 -> 20
+    -> 1, the linear regressor), one and two talkers; one launch a call,
+    and the same bits on a second call."""
+    from telluride_decoding_torch.ops import regression_push
+    decoder = _regression_plan_decoder(cuda, kind, f1, DNN_PLAN[3],
+                                       seed=rows)
+    pipeline = decoder._current_pipeline()
+    weights = pipeline.regression
+    assert weights.packed is not None and weights.launches(rows)
+    rng = np.random.RandomState(rows + 1)
+    x1 = torch.as_tensor(rng.randn(rows, f1), dtype=torch.float32,
+                         device=cuda)
+    ys = [torch.as_tensor(np.abs(rng.randn(rows, 1)), dtype=torch.float32,
+                          device=cuda) for _ in range(2)]
+    with torch.no_grad():
+        prediction = decoder.decoding_model({'input_1': x1})
+        plain = torch.stack([pipeline.correlate_reduce(y, prediction)
+                             for y in ys])
+    for streams in (1, 2):
+        before = kernels.launches['regression_push']
+        got = regression_push.regression_push(weights, x1, ys[:streams])
+        again = regression_push.regression_push(weights, x1, ys[:streams])
+        torch.cuda.synchronize()
+        assert kernels.launches['regression_push'] == before + 2
+        assert got.shape == (streams, rows)
+        torch.testing.assert_close(got, plain[:streams], **REGRESSION_TOL)
+        torch.testing.assert_close(
+            got, regression_push.regression_push_reference(
+                weights, x1, ys[:streams]), **REGRESSION_TOL)
+        assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['rows', 'dtype', 'talkers', 'contiguous',
+                                  'unpacked'])
+def test_regression_push_refuses_calls_beyond_its_limits(cuda, case):
+    """A CUDA call R1 does not take raises and launches nothing."""
+    from telluride_decoding_torch.ops import regression_push
+    f1 = 2553
+    hidden = [65] if case == 'unpacked' else DNN_PLAN[3]
+    weights = _regression_weights(
+        _regression_plan_decoder(cuda, 'dnn', f1, hidden, seed=0))
+    rows = 65 if case == 'rows' else 32
+    x1 = torch.randn((rows, f1), device=cuda)
+    ys = [torch.rand((rows, 1), device=cuda) for _ in range(2)]
+    if case == 'dtype':
+        x1 = x1.double()
+    elif case == 'talkers':
+        ys = ys + ys[:1]
+    elif case == 'contiguous':
+        x1 = torch.randn((rows, 2 * f1), device=cuda)[:, ::2]
+    elif case == 'unpacked':
+        assert weights.packed is None
+    before = kernels.launches['regression_push']
+    with pytest.raises(ValueError):
+        regression_push.regression_push(weights, x1, ys)
+    assert kernels.launches['regression_push'] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['dnn', 'linear'])
+def test_push_plan_regression_replays_r1_once_and_no_product(cuda, kind):
+    """A regression push plan at codelab widths: every push, eager first
+    sights and replays alike, launches R1 once (kernels.launches, and one
+    kernel of R1 a push in the device trace) and no cuBLAS product or
+    elementwise kernel beside K2 (a replay's fills of a long tensor are
+    PyTorch's own: the graph sets its generators' seed and offset); one
+    prediction a push, fused. The pipeline (R1's weights, packed once
+    with fills, copies into padded blocks and a cat) is built before the
+    trace: that is a build's work, not a push's."""
+    from torch.profiler import ProfilerActivity, profile
+    from telluride_decoding_torch.utils import profiling
+    channels, pre, post, hidden, rows = DNN_PLAN
+    decoder = _regression_plan_decoder(cuda, kind, channels * (pre + 1 +
+                                                               post),
+                                       hidden, seed=12)
+    assert _regression_weights(decoder).packed is not None
+    rng = np.random.RandomState(6)
+    pushes = 23
+    before = kernels.launches['regression_push']
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for push in range(pushes):
+                _, counts = _counted_push(decoder, _regression_push(
+                    rng, rows, channels, pre, post, True))
+                assert counts[1] == (push >= 1), push
+            torch.cuda.synchronize()
+        counters = profiling.recorded().counters
+    finally:
+        profiling.reset()
+    assert kernels.launches['regression_push'] == before + pushes
+    assert (counters.get(profiling.PREDICT_PASSES, 0),
+            counters.get(profiling.FUSED_PREDICT_PASSES, 0)) == (pushes,
+                                                                 pushes)
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum(e.count for e in device
+               if 'regression_push_kernel' in e.key) == pushes, [
+                   e.key for e in device]
+    assert not [(e.key, e.count) for e in device
+                if not any(name in e.key for name in (
+                    'regression_push_kernel', 'lag_stack_kernel', 'Memcpy',
+                    'Memset', 'FillFunctor<long>'))]

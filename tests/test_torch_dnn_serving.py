@@ -372,8 +372,9 @@ def test_regression_plan_stages_the_envelopes(monkeypatch, kind, raw):
 
 def test_regression_plan_keeps_the_weights_of_its_key(monkeypatch):
     """A refit (``set_params``) gives a new key. The plan of the old key
-    holds the parameters its graph reads, which the refit replaced, and
-    frees them with it."""
+    holds the parameters its graph reads, which the refit replaced (the
+    old key's pipeline holds them too, for kernel R1), and frees them
+    with it."""
     args = pair()
     decoder = on_card(decoder_of('dnn'))
     key = decoder._plan_key(*args)
@@ -388,6 +389,7 @@ def test_regression_plan_keeps_the_weights_of_its_key(monkeypatch):
     on_card(decoder)
     again = decoder._plan_key(*args)
     assert again[1:] == key[1:] and again[0] is not key[0]
+    del key
     gc.collect()
     assert all(r() is not None for r in read)
     StandInPlan.made = []
