@@ -117,6 +117,7 @@ def get_data_for_model(tf_dir: str, train_files, test_files,
     """Train and test datasets for both speakers, checked against the
     model, on the decoder's device. include_train=False skips the
     training corpora, which a trained decoder never reads."""
+    model_object.require_stacked_rows('cli/infer.py\'s evaluation')
     params = model_object.decoding_model_params
     device = model_object.device
     brain_data_1 = create_brain_data(tf_dir, train_files, test_files,

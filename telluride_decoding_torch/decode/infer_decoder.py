@@ -25,7 +25,12 @@ each talker's envelope is correlated with that prediction (a served
 chunk's prediction, correlations and LDA in one launch of kernel R1
 where the prediction is a dense ReLU stack and the reduction 'lda');
 such a decoder's pushes ride a push plan too, its envelopes staged
-beside the frames.
+beside the frames. A model with a window context (VLAAI,
+models/vlaai.py) reads input_1's raw window [rows + pre + post, C]
+itself, unstacked, and predicts its rows: the route of a regression
+model with no K2 for the EEG, chosen once when the pipeline is built;
+such a model is served only (the offline routes, which read stacked
+rows, refuse it).
 
 ``decoder_model.json`` stays wire-compatible with the JAX package and the
 reference: the same ModelParams namedtuple structure, complex arrays
@@ -104,16 +109,20 @@ def _reduce(correlations: torch.Tensor, reduction: str,
 
 class _Pipeline(collections.namedtuple(
         '_Pipeline', ['folded', 'towers', 'correlate_reduce',
-                      'regression'])):
+                      'regression', 'window', 'input_1'])):
     """What a decoder serves with, built from the current model and
     statistics: ``folded`` (kernel K1's parameters) and ``towers`` (a
     deep CCA model's ``Decoder._towers()``, which holds the weights it
     reads, or None) when the fused decode applies, else None and None
-    and ``correlate_reduce(r1, r2)`` in plain torch; and ``regression``,
+    and ``correlate_reduce(r1, r2)`` in plain torch; ``regression``,
     a regression decoder's layers, statistics and LDA for kernel R1
     (``RegressionWeights``, packed once on the card) where its
     prediction is a dense ReLU stack and the reduction 'lda', else
-    None."""
+    None; ``window``, the model's window context (pre, post) where it
+    reads a raw window (``BrainModel.window_context``), else None; and
+    ``input_1(frames, lags)``, what the model reads of input_1: its
+    rows, stacked where it has context (``_stacked``), or for a window
+    model the raw window itself (``_raw_window``)."""
 
 
 def _frames(value):
@@ -129,6 +138,31 @@ def _lags(value) -> Tuple[int, int]:
 def _rows(frames, lags) -> int:
     """The rows a call scores: input_1's frames less its context."""
     return frames[0].shape[0] - sum(lags[0])
+
+
+def _stacked(x: torch.Tensor, lags: Tuple[int, int]) -> torch.Tensor:
+    """A stream's rows from its frames on the decoder's device: lag
+    stacked where it has context (K2 on the card; on the CPU the plain
+    stack), row t the row of frame pre + t: a copy, the host stack's
+    bits."""
+    pre, post = lags
+    if not pre + post:
+        return x
+    return lag_stack(x, 0, pre + post)[:len(x) - pre - post]
+
+
+def _raw_window(context: Tuple[int, int]) -> Callable:
+    """input_1 of a model with a window context: the raw window [rows +
+    pre + post, C] as the serving loop's LagRows holds it, unstacked."""
+    def raw_window(x: torch.Tensor, lags: Tuple[int, int]) -> torch.Tensor:
+        if tuple(lags) != tuple(context):
+            raise ValueError(
+                'A model with a window context of %s reads raw windows of '
+                'that context (ops/lagstack.py::LagRows, as '
+                'cli/serve.py::StreamingAttentionServer.push hands them '
+                'over), not inputs of context %s.' % (context, tuple(lags)))
+        return x
+    return raw_window
 
 
 class PairProgram(torch.nn.Module):
@@ -151,6 +185,8 @@ class PairProgram(torch.nn.Module):
 
     def __init__(self, decoder: 'Decoder'):
         super().__init__()
+        decoder.require_stacked_rows('An AOT program (PairProgram), which '
+                                     'takes stacked rows,')
         self._decoder = decoder
         # A submodule, so the model's buffers are the program's.
         self.model = decoder.decoding_model
@@ -465,8 +501,31 @@ class Decoder:
             correlations = (r1 - mean_x) * (r2 - mean_y) / power
             return _reduce(correlations, reduction, lda_w, lda_slope,
                            lda_intercept)
+        window = self._window_context()
         return _Pipeline(folded, None if folded is None else self._towers(),
-                         correlate_reduce, regression)
+                         correlate_reduce, regression, window,
+                         _stacked if window is None else _raw_window(window))
+
+    def _window_context(self) -> Optional[Tuple[int, int]]:
+        """The decoding model's window context (pre, post), or None."""
+        return getattr(self._decoding_model, 'window_context', None)
+
+    def require_stacked_rows(self, what: str):
+        """Refuses ``what``, an offline route that reads lag-stacked
+        rows, for a model with a window context: its rows would stack
+        pre + 1 + post lags of every frame, and it reads raw windows
+        (``infer_one`` and the routes through it refuse such rows in
+        ``_raw_window``)."""
+        context = self._window_context()
+        if context is not None:
+            raise ValueError(
+                '%s reads a raw window of %d frames before and %d after '
+                'each frame, and is served only through '
+                'cli/serve.py::StreamingAttentionServer.push (its '
+                'infer_pair on raw windows); %s would stack %d lags of '
+                'every frame and is not supported for it.'
+                % (type(self._decoding_model).__name__, context[0],
+                   context[1], what, sum(context) + 1))
 
     def _regression(self, mean_x, mean_y, power, lda_w, lda_slope,
                     lda_intercept) -> Optional[RegressionWeights]:
@@ -512,10 +571,10 @@ class Decoder:
         stream's output, ``outputs`` on this decoder's device: [streams,
         rows] (or [streams, rows, D] for 'all'); where
         ``_fused_prediction`` holds, kernel R1 computes that in one
-        launch (span ``decoder.predict``)."""
-        x1, *x2s = (lag_stack(x, 0, pre + post)[:len(x) - pre - post]
-                    if pre + post else x
-                    for x, (pre, post) in zip(frames, lags))
+        launch (span ``decoder.predict``). A model with a window context
+        reads input_1's raw window instead (``pipeline.input_1``)."""
+        x1 = pipeline.input_1(frames[0], lags[0])
+        x2s = [_stacked(x, lag) for x, lag in zip(frames[1:], lags[1:])]
         if pipeline.folded is None:
             if self._fused_prediction(pipeline, len(x1)):
                 with profiling.span('decoder.predict'):
@@ -560,13 +619,18 @@ class Decoder:
         profiler runs: a deep CCA model's tower passes, one a stream, and
         those of them that ran kernel T1 (towers that tell, by ``fused``);
         without K1, the model's forward passes, and those of them that
-        ran kernel R1; on the card, one device stack where a stream had
-        context."""
+        ran kernel R1, and for a model with a window context the raw
+        frames they read (input_1's rows and context, not stacked); on the
+        card, one device stack where a stacked stream had context."""
         if pipeline.folded is None:
             passes = 1 if self._shares_prediction() else len(lags) - 1
             profiling.count(profiling.PREDICT_PASSES, passes)
             if self._fused_prediction(pipeline, rows):
                 profiling.count(profiling.FUSED_PREDICT_PASSES, passes)
+            if pipeline.window is not None:
+                profiling.count(profiling.WINDOW_FRAMES,
+                                passes * (rows + sum(pipeline.window)))
+                lags = lags[1:]
         towers = pipeline.towers
         if towers is not None:
             profiling.count(profiling.TOWER_PASSES, len(lags))
@@ -718,6 +782,7 @@ class Decoder:
         data0: class-0 (unattended/mixed-up); data1: class-1 (attended);
         each an iterable of (input_dict, output) minibatches.
         """
+        self.require_stacked_rows('Decoder.train')
         decoded0 = self._decode_dataset(data0)
         decoded1 = self._decode_dataset(data1)
         self.reset_correlation_statistics()
@@ -803,8 +868,12 @@ class Decoder:
         A BrainDataset without batch transforms decodes in one
         ``infer_one`` call over its stored arrays, cut to whole
         minibatches as its iterator would; any other dataset decodes
-        batch by batch.
+        batch by batch. A model with a window context is refused
+        (``require_stacked_rows``): its whole-split evaluation is not
+        ported.
         """
+        self.require_stacked_rows('Decoder.frame_scores (whole-split '
+                                  'evaluation)')
         from telluride_decoding_torch.data.brain_data import BrainDataset
         if isinstance(dataset, BrainDataset) and \
                 not dataset.has_batch_transforms:

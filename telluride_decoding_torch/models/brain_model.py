@@ -82,6 +82,10 @@ class BrainModel(torch.nn.Module):
     # Whether ``forward`` reads ``input_dict['input_1']`` alone: a decoder
     # may then compute one prediction for every input_2 stream it scores.
     reads_input_1_only = False
+    # (pre, post) of a model whose ``forward`` reads a raw window of
+    # [rows + pre + post, C] frames and predicts its rows (VLAAI), which a
+    # decoder hands it unstacked; None for a model of stacked rows.
+    window_context: Optional[Tuple[int, int]] = None
 
     def __init__(self, device, tensorboard_dir: Optional[str] = None):
         super().__init__()
@@ -307,8 +311,8 @@ class BrainModel(torch.nn.Module):
 
 def load_model(model_dir: str, device) -> BrainModel:
     """Loads a saved model of a registered class onto ``device``."""
-    # Registers BrainModelCCA and BrainModelDCCA.
-    from telluride_decoding_torch.models import cca  # noqa: F401
+    # Registers BrainModelCCA, BrainModelDCCA and BrainModelVLAAI.
+    from telluride_decoding_torch.models import cca, vlaai  # noqa: F401
     with open(os.path.join(model_dir, 'model.json')) as f:
         meta = json.load(f)
     cls = _MODEL_REGISTRY.get(meta['model_class'])

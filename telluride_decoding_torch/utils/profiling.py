@@ -17,7 +17,8 @@ decode/push_plan.py, and ``DEVICE_STACKS`` for decoder calls that
 stack raw context windows on the card; ``TOWER_PASSES`` for a deep CCA
 decoder's tower passes and ``FUSED_TOWER_PASSES`` for those that ran
 kernel T1; ``PREDICT_PASSES`` for a regression decoder's forward
-passes and ``FUSED_PREDICT_PASSES`` for those that ran kernel R1),
+passes and ``FUSED_PREDICT_PASSES`` for those that ran kernel R1;
+``WINDOW_FRAMES`` for the raw frames a window model's passes read),
 ``recorded()`` and ``reset()``. It records while a
 torch profiler runs, and only then: ``torch.profiler.profile`` (the
 benchmark's traced slice) or ``trace`` (an operator's ``--trace_dir``).
@@ -65,6 +66,10 @@ PREDICT_PASSES = 'decoder.predict_passes'
 # Those of them that ran kernel R1 (ops/regression_push.py), replays
 # included.
 FUSED_PREDICT_PASSES = 'decoder.fused_predict_passes'
+# The raw frames that the forward passes of a model with a window context
+# (``BrainModel.window_context``: VLAAI) read in served calls, its rows
+# and their context, replays included.
+WINDOW_FRAMES = 'decoder.window_frames'
 DROPPED = 'dropped'
 CAP = 1 << 20
 _clock = time.time_ns

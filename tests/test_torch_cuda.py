@@ -31,7 +31,12 @@ in one launch, against its plain version: rtol 1e-5 / atol 1e-5
 (no atomics). R1, a regression decoder's prediction, correlations and LDA
 in one launch, against the model's stack and ``correlate_reduce`` on the
 card: rtol 1e-5 / atol 1e-5 on the scores (REGRESSION_TOL, for the same
-reason); against itself, bit for bit.
+reason); against itself, bit for bit. VLAAI's push plan against its eager
+route: bit for bit (the same unfolds, products and layer norms on the
+same staged window); VLAAI served at its published widths against the
+plain reference in float64: the window means within the benchmark
+cell's ``score_rel_err`` limit, the limit that decides the cell's
+``correct``.
 """
 
 import numpy as np
@@ -1677,3 +1682,147 @@ def test_push_plan_regression_replays_r1_once_and_no_product(cuda, kind):
                 if not any(name in e.key for name in (
                     'regression_push_kernel', 'lag_stack_kernel', 'Memcpy',
                     'Memset', 'FillFunctor<long>'))]
+
+
+# VLAAI at its published widths (64 channels, 4 blocks; a raw window of 124
+# frames before a row and 140 after), 32-row pushes.
+VLAAI_PLAN = (64, 124, 140, 32)
+
+
+def _vlaai_decoder(cuda, seed):
+    """A served VLAAI decoder with the LDA reduction (D 1) from seeded
+    weights (N(0, 2 / fan_in), biases N(0, 0.01), layer-norm scales 1 +
+    N(0, 0.1) and shifts N(0, 0.1)), as the benchmark's VLAAI cell builds
+    it; and the weights under the plain reference's names."""
+    from telluride_decoding_torch.decode.infer_decoder import (
+        LinearRegressionDecoder)
+    from telluride_decoding_torch.models.vlaai import BrainModelVLAAI
+    rng = np.random.RandomState(seed)
+    weights = {}
+    for name, shape in BrainModelVLAAI(device='cpu').param_shapes():
+        if name.endswith('/w'):
+            weights[name] = rng.randn(*shape) * np.sqrt(
+                2.0 / np.prod(shape[:-1]))
+        elif name.endswith('/gamma'):
+            weights[name] = 1.0 + np.sqrt(0.1) * rng.randn(*shape)
+        elif name.endswith('/beta'):
+            weights[name] = np.sqrt(0.1) * rng.randn(*shape)
+        else:
+            weights[name] = 0.1 * rng.randn(*shape)
+    weights = {k: v.astype(np.float32) for k, v in weights.items()}
+    model = BrainModelVLAAI.from_numpy(weights, cuda)
+    decoder = LinearRegressionDecoder(model, reduction='lda', device=cuda)
+    params = _plan_params(rng, 1)
+    decoder.model_params = params
+    corr, lda = params
+    weights.update(corr_mean_x=np.asarray(corr.mean_x),
+                   corr_mean_y=np.asarray(corr.mean_y),
+                   corr_power=np.asarray(corr.power),
+                   lda_w=np.asarray(lda[0]), lda_slope=lda[4],
+                   lda_intercept=lda[5])
+    decoder.decoding_model_params = {
+        'pre_context': VLAAI_PLAN[1], 'post_context': VLAAI_PLAN[2],
+        'input2_pre_context': 0, 'input2_post_context': 0}
+    return decoder, weights
+
+
+def _eager_scores(decoder, args):
+    """infer_pair's route without a plan (a key's first sight): the raw
+    frames uploaded, the model's forward pass launched eagerly, two
+    reads."""
+    return tuple(s.cpu().numpy() for s in decoder._pair_scores(*args))
+
+
+@pytest.mark.cuda
+def test_push_plan_vlaai_scores_equal_the_eager_route(cuda, profiled):
+    """VLAAI at its published widths rides the plan: the two first
+    sights take the route without one (seven host waits), the second
+    full push captures the network's unfolds, products, layer norms and
+    pads, every later one replays with one wait; one prediction a push
+    over rows + 264 raw frames, no K1, no K2, and the scores are the
+    eager route's bits. New weights mid-stream (``set_params``) give a
+    new key, whose scores are the new weights' bits."""
+    from telluride_decoding_torch.utils import profiling
+    channels, pre, post, rows = VLAAI_PLAN
+    decoder, _ = _vlaai_decoder(cuda, seed=4)
+    rng = np.random.RandomState(3)
+    stacks = kernels.launches['lag_stack']
+    for push in range(40):
+        args = _regression_push(rng, rows - 5 if push == 0 else rows,
+                                channels, pre, post, True)
+        want = _eager_scores(decoder, args)
+        got, counts = _counted_push(decoder, args)
+        _assert_same_bits(got, want)
+        assert counts == {0: (0, 0, 0, 7), 1: (0, 0, 0, 7),
+                          2: (0, 1, 1, 1)}.get(push, (0, 1, 0, 1)), push
+    assert kernels.launches['lag_stack'] == stacks
+    counters = profiling.recorded().counters
+    assert counters[profiling.PREDICT_PASSES] == 40 + 40
+    assert counters[profiling.WINDOW_FRAMES] == 80 * (rows + pre + post) - 10
+    assert profiling.DEVICE_STACKS not in counters
+    (key,) = decoder._push_plans._plans
+    assert key[2:] == (((pre, post), (0, 0), (0, 0)),
+                       (channels * (pre + 1 + post), 1, 1))
+    old = got
+    fresh, _ = _vlaai_decoder(cuda, seed=5)
+    decoder.decoding_model.set_params(
+        {k: v.clone() for k, v in fresh.decoding_model.params.items()})
+    for push in range(4):
+        want = _eager_scores(decoder, args)
+        got, counts = _counted_push(decoder, args)
+        _assert_same_bits(got, want)
+        assert not np.array_equal(got[0], old[0])
+        assert counts == [(0, 0, 0, 7), (0, 1, 1, 1), (0, 1, 0, 1),
+                          (0, 1, 0, 1)][push], push
+
+
+@pytest.mark.cuda
+def test_vlaai_served_at_published_widths_matches_plain(cuda):
+    """A session served through StreamingAttentionServer.push on the card
+    (the push plan from the third push on) against the plain reference
+    in float64 on the CPU: every window mean within the cell's
+    ``score_rel_err`` limit of the means' RMS (portbench/limits), every
+    decision clear of twice that margin the reference's."""
+    import json
+    import os
+    import plain_vlaai
+    from telluride_decoding_torch.cli import serve
+    channels, pre, post, rows = VLAAI_PLAN
+    decoder, weights = _vlaai_decoder(cuda, seed=6)
+    rng = np.random.RandomState(7)
+    frames = 3000
+    talkers = np.abs(rng.randn(2, frames)).astype(np.float32)
+    eeg = (talkers[0][:, None] * rng.randn(channels) +
+           rng.randn(frames, channels)).astype(np.float32)
+    audio1, audio2 = talkers[0][:, None], talkers[1][:, None]
+    server = serve.StreamingAttentionServer(
+        decoder, eeg_channels=channels, audio_channels=1, window_width=100,
+        window_step=50, decision='wta')
+    means, decisions = [], []
+    attention = server._decide.attention
+
+    def taped(c1, c2):
+        out = attention(c1, c2)
+        means.append((c1, c2))
+        decisions.append(bool(out[0] >= 0.5))
+        return out
+    server._decide.attention = taped
+    for start in range(0, frames, rows):
+        sl = slice(start, start + rows)
+        server.push(eeg[sl], audio1[sl], audio2[sl])
+    weights = {k: np.asarray(v, np.float64) if isinstance(v, np.ndarray)
+               else v for k, v in weights.items()}
+    s1, s2 = plain_vlaai.frame_scores(eeg, audio1, audio2, weights)
+    want1, want2 = (plain_vlaai.window_means(s, 100, 50) for s in (s1, s2))
+    got1, got2 = np.asarray(means).T
+    assert len(got1) == len(want1) > 50
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, 'portbench', 'limits',
+                           'kuleuven_vlaai.serve_wta.json')) as f:
+        limit = json.load(f)['score_rel_err']
+    scale = np.sqrt(np.mean(np.concatenate([want1, want2]) ** 2))
+    err = np.abs(np.concatenate([got1 - want1, got2 - want2])).max()
+    assert err <= limit * scale, err / scale
+    clear = np.abs(want1 - want2) > 2 * limit * scale
+    assert np.array_equal(np.asarray(decisions)[clear],
+                          plain_vlaai.wta(want1, want2)[clear])
